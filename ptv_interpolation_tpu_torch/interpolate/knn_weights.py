@@ -1,0 +1,169 @@
+"""kNN-weighted interpolation: IDW and the reference's "sibson" variant.
+
+Counterpart of ``ptv_interpolation_tpu/interpolate/knn_weights.py``:
+
+* IDW — weights ``1/(d^p + 1e-10)``, normalised, per-channel weighted sum
+  over the k nearest particles.
+* "sibson" — not natural-neighbour interpolation: inverse-distance weights
+  times an ``exp(-(d - min d)/std(d))`` smoothing factor, renormalised. The
+  shift by ``min d`` cancels under normalisation and keeps the f32 exp from
+  underflowing to an all-zero row for queries far from the cloud.
+
+Scattered queries use exact brute-force kNN; grid targets use the fused
+block kernel (``ops/grid_knn.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+
+from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
+from ptv_interpolation_tpu_torch.ops.neighbors import (bruteforce_tile_fn,
+                                                       map_query_tiles)
+
+_EPS = 1e-10
+
+
+def _idw_weights(dist: torch.Tensor, power: float, ok=None) -> torch.Tensor:
+    """Normalised IDW weights; ``ok`` masks invalid neighbour slots and
+    the weights renormalise over the valid ones."""
+    w = 1.0 / (dist ** power + _EPS)
+    if ok is not None:
+        w = torch.where(ok, w, 0.0)
+    return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-37)
+
+
+def _sibson_weights(dist: torch.Tensor, ok=None) -> torch.Tensor:
+    """Normalised smoothed-IDW weights; with ``ok``, the min/std statistics
+    and the normalisation run over the valid slots only (numpy std,
+    ddof=0)."""
+    if ok is None:
+        ok = torch.ones_like(dist, dtype=torch.bool)
+    okf = ok.to(dist.dtype)
+    n_ok = torch.clamp_min(okf.sum(dim=-1, keepdim=True), 1.0)
+    inv = torch.where(ok, 1.0 / (dist + _EPS), 0.0)
+    d_ok = torch.where(ok, dist, 0.0)
+    mean = d_ok.sum(dim=-1, keepdim=True) / n_ok
+    var = (okf * (d_ok - mean) ** 2).sum(dim=-1, keepdim=True) / n_ok
+    dist_std = torch.sqrt(torch.clamp_min(var, 0.0))
+    dmin = torch.where(ok, dist, torch.inf).amin(dim=-1, keepdim=True)
+    dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+    smoothing = torch.where(ok, torch.exp(-(dist - dmin) / (dist_std + _EPS)),
+                            0.0)
+    w = inv * smoothing
+    return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-37)
+
+
+def _weighted_tile(neighbor_fn, values: torch.Tensor, weight_fn: Callable):
+    def tile(q_tile):
+        sq, idx = neighbor_fn(q_tile)
+        ok = idx >= 0
+        # clamp missing-slot distances (~3.4e38) before weighting: they
+        # overflow f32 inside dist**power
+        dist = torch.sqrt(torch.clamp_min(torch.where(ok, sq, 1.0), 0.0))
+        w = weight_fn(dist, ok)                               # (T, k)
+        vals = values[idx.clamp_min(0)]                       # (T, k, C)
+        return (w[..., None] * vals).sum(dim=1)               # exact f32
+
+    return tile
+
+
+def idw_interpolate(points, values, queries, k: int = 50, power: float = 2.0,
+                    query_tile: int = 1024, point_chunk: int = 4096,
+                    device="cuda") -> torch.Tensor:
+    """IDW interpolation of ``values`` (N, C) at ``queries`` (Q, 3), exact
+    brute-force kNN, on ``device``. Returns (Q, C)."""
+    dev = resolve_device(device)
+    tile = _weighted_tile(
+        bruteforce_tile_fn(as_f32(points, dev), k, point_chunk),
+        as_f32(values, dev), lambda d, ok: _idw_weights(d, power, ok))
+    return map_query_tiles(tile, as_f32(queries, dev), query_tile)
+
+
+def sibson_interpolate(points, values, queries, k: int = 30,
+                       query_tile: int = 1024, point_chunk: int = 4096,
+                       device="cuda") -> torch.Tensor:
+    """Reference-parity "sibson" (smoothed-IDW) interpolation at
+    ``queries`` (Q, 3), exact brute-force kNN, on ``device``."""
+    dev = resolve_device(device)
+    tile = _weighted_tile(
+        bruteforce_tile_fn(as_f32(points, dev), k, point_chunk),
+        as_f32(values, dev), _sibson_weights)
+    return map_query_tiles(tile, as_f32(queries, dev), query_tile)
+
+
+# ---------------------------------------------------------------------------
+# Grid fast paths: block-centric evaluation (ops/grid_knn.py)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _idw_panel_weights(power: float):
+    """IDW panel weight function ``fn(d, mask, sq_topk)``, tagged with
+    ``canned_mode`` so that ``grid_weighted_interpolate`` may route the
+    call to the fused kernel, which derives the same weights itself."""
+    def weight_fn(d, mask, sq_topk):
+        return 1.0 / (d ** power + _EPS)
+    weight_fn.canned_mode = "idw"
+    return weight_fn
+
+
+@functools.lru_cache(maxsize=1)
+def _sibson_panel_weights():
+    """Sibson panel weight function ``fn(d, mask, sq_topk)``: the k-set
+    statistics come from masked reductions over the panel (``sq_topk``
+    None) or from the selected top-k squared distances. Tagged with
+    ``canned_mode`` like :func:`_idw_panel_weights`."""
+    def weight_fn(d, mask, sq_topk):
+        if sq_topk is None:
+            okf = mask.to(d.dtype)
+            n_ok = torch.clamp_min(okf.sum(dim=-1, keepdim=True), 1.0)
+            d_ok = torch.where(mask, d, 0.0)
+            mean = d_ok.sum(dim=-1, keepdim=True) / n_ok
+            var = (okf * (d_ok - mean) ** 2).sum(dim=-1, keepdim=True) / n_ok
+            std = torch.sqrt(torch.clamp_min(var, 0.0))
+            dmin = torch.where(mask, d, torch.inf).amin(dim=-1, keepdim=True)
+            dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+        else:
+            d_k = torch.sqrt(torch.clamp_min(sq_topk, 0.0))
+            std = d_k.std(dim=-1, keepdim=True, correction=0)
+            dmin = d_k[:, :1]
+        inv = 1.0 / (d + _EPS)
+        return inv * torch.exp(-(d - dmin) / (std + _EPS))
+    weight_fn.canned_mode = "sibson"
+    return weight_fn
+
+
+def idw_grid_interpolate(points, values, grid, k: int = 50,
+                         power: float = 2.0, exact_topk: bool = False,
+                         **kwargs) -> torch.Tensor:
+    """IDW onto a :class:`Grid` via the block-centric τ-threshold kernel;
+    returns (nz, ny, nx, C) on ``device`` (a keyword, default 'cuda').
+    ``exact_topk=True`` (the gather-based oracle) is not ported yet."""
+    from ptv_interpolation_tpu_torch.ops.grid_knn import (
+        grid_weighted_interpolate)
+    if exact_topk:
+        raise NotImplementedError(
+            "exact_topk=True (grid_knn_apply) is not ported yet")
+    return grid_weighted_interpolate(points, values, grid, k,
+                                     _idw_panel_weights(float(power)),
+                                     mode="idw", power=float(power),
+                                     **kwargs)
+
+
+def sibson_grid_interpolate(points, values, grid, k: int = 30,
+                            exact_topk: bool = False,
+                            **kwargs) -> torch.Tensor:
+    """Sibson (smoothed IDW) onto a :class:`Grid` via the block-centric
+    τ-threshold kernel; returns (nz, ny, nx, C) on ``device`` (a keyword,
+    default 'cuda'). ``exact_topk=True`` is not ported yet."""
+    from ptv_interpolation_tpu_torch.ops.grid_knn import (
+        grid_weighted_interpolate)
+    if exact_topk:
+        raise NotImplementedError(
+            "exact_topk=True (grid_knn_apply) is not ported yet")
+    return grid_weighted_interpolate(points, values, grid, k,
+                                     _sibson_panel_weights(), mode="sibson",
+                                     **kwargs)

@@ -1,0 +1,211 @@
+"""k-nearest-neighbour primitives: exact brute force and the CSR cell list.
+
+Counterpart of ``ptv_interpolation_tpu/ops/neighbors.py``:
+
+* :func:`knn_bruteforce` — exact kNN by streaming point chunks through a
+  running top-k merge, distances from one matmul per chunk and then
+  recomputed exactly for the selected k. Right for small clouds and for
+  the grid path's last repair stage.
+* :class:`CellList` / :func:`build_cell_list` — particles bucketed into a
+  uniform voxel grid in CSR form (``starts`` + ``order`` +
+  ``points_sorted``), the layout the fused grid kernel gathers from. Only
+  the CSR layout is ported; the dense per-cell ``table`` of the JAX
+  package serves paths that are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
+
+_BIG = 3.4e38          # sentinel squared distance for missing neighbours
+_PAD_ROWS = 1024       # far-sentinel rows after the sorted points
+_SENTINEL = 1e19       # sentinel coordinate → d² ≈ 1e38, never selected
+_MAX_CELLS = 2 ** 22   # bound on the cell count (degenerate cell sizes)
+
+
+def _pairwise_sq_dists(queries: torch.Tensor,
+                       points: torch.Tensor) -> torch.Tensor:
+    """(Q, N) squared distances via one matmul plus rank-1 corrections,
+    centred on the query centroid first so the |q|²+|p|²−2q·p expansion
+    does not cancel catastrophically. Callers recompute the selected
+    distances exactly."""
+    center = queries.mean(dim=0)
+    q = queries - center
+    p = points - center
+    qq = (q * q).sum(dim=-1, keepdim=True)
+    pp = (p * p).sum(dim=-1)
+    qp = q @ p.T
+    return torch.clamp_min(qq + pp[None, :] - 2.0 * qp, 0.0)
+
+
+def map_query_tiles(tile_fn, queries: torch.Tensor, query_tile: int):
+    """Apply ``tile_fn`` to (≤ query_tile, 3) slices of ``queries`` and
+    concatenate each output of the result (a tensor or a tuple of them)."""
+    outs = [tile_fn(queries[s:s + query_tile])
+            for s in range(0, queries.shape[0], query_tile)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+    return torch.cat(outs, dim=0)
+
+
+def bruteforce_tile_fn(points: torch.Tensor, k: int, point_chunk: int = 4096):
+    """Per-tile exact kNN closure: ``fn(q_tile) -> (sq_dists, idx)``, both
+    (T, k), ascending; missing neighbours (k > n_points) carry index -1
+    and distance ``_BIG``. Points stream in chunks of ``point_chunk``
+    through a running top-k, so peak memory is O(tile × chunk)."""
+    n_points = points.shape[0]
+
+    def per_tile(q_tile):
+        t = q_tile.shape[0]
+        best_d = torch.full((t, k), _BIG, dtype=torch.float32,
+                            device=q_tile.device)
+        best_i = torch.full((t, k), -1, dtype=torch.int64,
+                            device=q_tile.device)
+        for s in range(0, n_points, point_chunk):
+            chunk = points[s:s + point_chunk]
+            d2 = _pairwise_sq_dists(q_tile, chunk)
+            cand_i = torch.arange(s, s + chunk.shape[0],
+                                  device=q_tile.device).expand(t, -1)
+            all_d = torch.cat([best_d, d2], dim=1)
+            all_i = torch.cat([best_i, cand_i], dim=1)
+            best_d, args = torch.topk(all_d, k, dim=1, largest=False)
+            best_i = torch.gather(all_i, 1, args)
+        # the matmul expansion carries O(eps·|x|²) noise: recompute the
+        # selected k distances directly, then re-sort ascending
+        neigh = points[best_i.clamp_min(0)]                        # (T, k, 3)
+        exact = ((q_tile[:, None, :] - neigh) ** 2).sum(dim=-1)
+        best_d = torch.where(best_i >= 0, exact, best_d)
+        best_d, order = torch.sort(best_d, dim=1, stable=True)
+        return best_d, torch.gather(best_i, 1, order)
+
+    return per_tile
+
+
+def knn_bruteforce(points, queries, k: int, query_tile: int = 1024,
+                   point_chunk: int = 4096, device="cuda"):
+    """Exact kNN: for each query, the ``k`` nearest of ``points``. Returns
+    ``(dists, idx)`` of shape (Q, k), distances ascending; missing
+    neighbours are inf-distance with index -1 (``KDTree.query``
+    semantics)."""
+    dev = resolve_device(device)
+    pts = as_f32(points, dev)
+    qs = as_f32(queries, dev)
+    d2, idx = map_query_tiles(bruteforce_tile_fn(pts, k, point_chunk), qs,
+                              query_tile)
+    dist = torch.where(idx < 0, torch.inf, torch.sqrt(d2))
+    return dist, idx
+
+
+# ---------------------------------------------------------------------------
+# CSR cell list
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CellList:
+    """Particles bucketed into a uniform voxel grid, CSR layout: cell ids
+    are ``(cz·ncy + cy)·ncx + cx``, ``order`` lists the particle ids sorted
+    by cell (stably), ``starts[c]`` is the first sorted index of cell c, and
+    ``points_sorted`` is padded with 1024 far-sentinel rows so that reads
+    past the end stay harmless."""
+
+    starts: torch.Tensor         # (n_cells + 1,) int32 CSR offsets
+    order: torch.Tensor          # (n_points,) int32 cell-sorted particle ids
+    points_sorted: torch.Tensor  # (n_points + 1024, 3) f32, sentinel padded
+    origin: torch.Tensor         # (3,) f32
+    inv_cell: torch.Tensor       # (3,) f32 — 1 / cell_size
+    dims: Tuple[int, int, int]   # (ncx, ncy, ncz)
+    cap: int                     # maximum cell occupancy
+    n_pts: int                   # point count = index of the first sentinel
+    origin_host: np.ndarray      # host copies read by the capacity planners
+    inv_host: float              # unrounded 1 / cell_size
+
+    @property
+    def n_points(self) -> int:
+        return self.n_pts
+
+    @property
+    def device(self) -> torch.device:
+        return self.points_sorted.device
+
+
+def auto_cell_size(n_points: int, bounds_lo, bounds_hi, k: int,
+                   safety: float = 1.45) -> float:
+    """Cell edge such that a ball of radius ``cell_size`` is expected to
+    hold ≥ k points at mean density."""
+    extent = np.maximum(np.asarray(bounds_hi, float)
+                        - np.asarray(bounds_lo, float), 1e-12)
+    volume = float(np.prod(extent))
+    density = max(n_points, 1) / volume
+    r_k = (3.0 * k / (4.0 * math.pi * density)) ** (1.0 / 3.0)
+    return float(r_k * safety)
+
+
+def build_cell_list(points, cell_size: float | None = None, k_hint: int = 32,
+                    bounds=None, device="cuda") -> CellList:
+    """Bucket ``points`` (numpy array or tensor) into a CSR cell list on
+    ``device``.
+
+    The build is permutation-identical to the JAX package's: cell indices
+    are quantized with the same f32 ops in the same order
+    (``((pts - lo) * inv)`` truncated to int32, ``inv`` an f32), and the
+    sort is stable on the same int32 keys. ``bounds``: optional
+    precomputed ``(lo, hi)`` f32 bounds of the cloud."""
+    dev = resolve_device(device)
+    pts = as_f32(points, dev)
+    n = pts.shape[0]
+    if bounds is not None:
+        lo = np.asarray(bounds[0], np.float32)
+        hi = np.asarray(bounds[1], np.float32)
+    else:
+        lo = pts.amin(dim=0).cpu().numpy()
+        hi = pts.amax(dim=0).cpu().numpy()
+    if cell_size is None:
+        cell_size = auto_cell_size(n, lo, hi, k_hint)
+    extent = np.maximum(hi - lo, 1e-12)
+    dims = np.maximum(np.ceil(extent / cell_size).astype(int), 1)
+    while int(np.prod(dims)) > _MAX_CELLS:  # degenerate tiny cell_size
+        cell_size *= 1.26
+        dims = np.maximum(np.ceil(extent / cell_size).astype(int), 1)
+    ncx, ncy, ncz = int(dims[0]), int(dims[1]), int(dims[2])
+    n_cells = ncx * ncy * ncz
+    inv = 1.0 / cell_size
+
+    lo_t = torch.as_tensor(lo, device=dev)
+    inv_t = torch.full((3,), np.float32(inv), dtype=torch.float32, device=dev)
+    dmax = torch.tensor([ncx - 1, ncy - 1, ncz - 1], dtype=torch.int32,
+                        device=dev)
+    cidx = torch.minimum(((pts - lo_t) * inv_t).to(torch.int32).clamp_min(0),
+                         dmax)
+    cell_id = (cidx[:, 2] * ncy + cidx[:, 1]) * ncx + cidx[:, 0]
+    sorted_cells, order = torch.sort(cell_id, stable=True)
+    starts = torch.searchsorted(
+        sorted_cells, torch.arange(n_cells + 1, dtype=torch.int32, device=dev),
+        right=False).to(torch.int32)
+    points_sorted = torch.cat(
+        [pts[order], torch.full((_PAD_ROWS, 3), _SENTINEL, dtype=torch.float32,
+                                device=dev)])
+    cap = int(torch.diff(starts).max().item()) if n else 1
+    return CellList(
+        starts=starts,
+        order=order.to(torch.int32),
+        points_sorted=points_sorted,
+        origin=lo_t,
+        inv_cell=inv_t,
+        dims=(ncx, ncy, ncz),
+        cap=cap,
+        n_pts=int(n),
+        origin_host=np.asarray(lo, np.float32),
+        inv_host=float(inv),
+    )
+
+
+def cell_meta_np(cells: CellList):
+    """(origin, inv) as host values."""
+    return np.asarray(cells.origin_host, np.float32), float(cells.inv_host)

@@ -1,0 +1,238 @@
+"""The port's fused grid kNN stages against the JAX package on one cell
+list carried across: setup, capacity planning and phase 1 bit for bit,
+the kernel's plain version against the Pallas kernel in interpret mode,
+and the repair stage. The CUDA kernel itself is held against its plain
+version in ``test_torch_fused_grid_knn_gpu.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptv_interpolation_tpu.grid import create_grid as jax_create_grid
+from ptv_interpolation_tpu.ops import fused_grid_knn as jfg
+from ptv_interpolation_tpu.ops import grid_knn as jgk
+from ptv_interpolation_tpu_torch.grid import create_grid
+from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+import torch_port_fixtures as fx
+
+torch.set_num_threads(2)
+
+# fields: the kernel's plain version and the Pallas kernel sum in another
+# order and differ by a few ulps in exp; d² and τ² decisions agree
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _jax_setup(cloud, k, block):
+    pts, vals, bounds, n = cloud
+    grid = jax_create_grid(bounds, n)
+    cells, values_sorted, axes, margin, mc, row_len, values_dev = \
+        jgk._host_setup(pts, vals, grid, k, None, None, block, 1.45,
+                        cell_divisor=3.0)
+    axes_np = tuple(np.asarray(a) for a in axes)
+    C = max((jfg._block_total_capacity(cells, axes_np, margin, block,
+                                       grid.shape, mc) + 127) // 128 * 128,
+            128)
+    dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
+    return dict(grid=grid, cells=cells, values_sorted=values_sorted,
+                axes=axes_np, margin=margin, mc=mc, row_len=row_len, C=C,
+                dims=dims, sz=jfg._pick_sz(*block), V=vals.shape[1])
+
+
+def _jax_panel(s, block, ids=None):
+    ids_dev = None if ids is None else jnp.asarray(ids, jnp.int32)
+    cand = jfg._compact_gather(s["cells"], s["values_sorted"], s["axes"],
+                               jnp.float32(s["margin"]), block,
+                               s["grid"].shape, s["mc"], s["C"], 8,
+                               ids=ids_dev)
+    q = jfg._build_queries(s["axes"], block, s["dims"], s["sz"], ids=ids_dev)
+    return cand, q
+
+
+def _torch(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("cloud,block", [
+    ("uniform", (2, 4, 8)), ("uniform", (4, 4, 8)),
+    ("dense_knot", (2, 4, 8)),       # the cell list is refined once
+    ("ragged", (4, 4, 8)),           # axes padded to block multiples
+])
+def test_host_setup_matches_jax(cloud, block):
+    pts, vals, bounds, n = getattr(fx, cloud)()
+    s = _jax_setup(getattr(fx, cloud)(), 12, block)
+    cells, vs, axes, margin, mc, row_len, v = tgk._host_setup(
+        pts, vals, create_grid(bounds, n), 12, block, 1.45, cell_divisor=3.0,
+        device="cpu")
+    assert margin == s["margin"] and mc == s["mc"]
+    assert row_len == s["row_len"]
+    assert cells.dims == s["cells"].dims
+    np.testing.assert_array_equal(cells.order.numpy(),
+                                  np.asarray(s["cells"].order))
+    np.testing.assert_array_equal(vs.numpy(), np.asarray(s["values_sorted"]))
+    for got, want in zip(axes, s["axes"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_row_capacity_error_matches_jax():
+    """1100 coincident points: no cell size keeps a row within the
+    1024-row padding, in either package."""
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(0, 24, size=(2000, 3)),
+                          np.full((1100, 3), 7.0)]).astype(np.float32)
+    vals = np.ones((len(pts), 3), np.float32)
+    bounds = ((0, 25),) * 3
+    with pytest.raises(jgk.RowCapacityError):
+        jgk._host_setup(pts, vals, jax_create_grid(bounds, 24), 10, None,
+                        None, (2, 4, 8), 1.45, cell_divisor=3.0)
+    with pytest.raises(tgk.RowCapacityError):
+        tgk._host_setup(pts, vals, create_grid(bounds, 24), 10, (2, 4, 8),
+                        1.45, cell_divisor=3.0, device="cpu")
+
+
+@pytest.mark.parametrize("block", [(2, 4, 8), (4, 4, 8), (8, 8, 16)])
+def test_block_total_capacity_matches_jax(block):
+    s = _jax_setup(fx.uniform(), 12, block)
+    cells = fx.carry_cells(s["cells"])
+    grid_shape = s["grid"].shape
+    want = jfg._block_total_capacity(s["cells"], s["axes"], s["margin"],
+                                     block, grid_shape, s["mc"])
+    got = tfg._block_total_capacity(cells, s["axes"], s["margin"], block,
+                                    grid_shape, s["mc"])
+    assert got == want
+    ids = np.array([0, 3, int(np.prod(s["dims"])) - 1])
+    margin2 = 1.6 * s["margin"]
+    assert tfg._block_total_capacity(
+        cells, s["axes"], margin2, block, grid_shape, s["mc"], ids=ids) == \
+        jfg._block_total_capacity(s["cells"], s["axes"], margin2, block,
+                                  grid_shape, s["mc"], ids=ids)
+
+
+@pytest.mark.parametrize("cloud,block", [
+    ("clustered", (2, 4, 8)), ("clustered", (4, 4, 8)),
+    ("ragged", (4, 4, 8)),
+])
+@pytest.mark.parametrize("subset", [False, True])
+def test_phase1_bit_equal(cloud, block, subset):
+    """Compacted indices, candidate panel and query rows equal the JAX
+    package's bit for bit."""
+    s = _jax_setup(getattr(fx, cloud)(), 10, block)
+    cells = fx.carry_cells(s["cells"])
+    n_blocks = int(np.prod(s["dims"]))
+    ids = np.array([n_blocks - 1, 0, 5, 17]) if subset else None
+    ids_dev = None if ids is None else jnp.asarray(ids, jnp.int32)
+    want_G = jfg._compact_indices(s["cells"], s["axes"],
+                                  jnp.float32(s["margin"]), block,
+                                  s["grid"].shape, s["mc"], s["C"],
+                                  ids=ids_dev)
+    got_G = tfg._compact_indices(cells, s["axes"], s["margin"], block,
+                                 s["grid"].shape, s["mc"], s["C"], ids=ids)
+    np.testing.assert_array_equal(got_G.numpy(), np.asarray(want_G))
+
+    want_cand, want_q = _jax_panel(s, block, ids)
+    vs = _torch(s["values_sorted"])
+    got_cand = tfg._compact_gather(cells, vs, s["axes"], s["margin"], block,
+                                   s["grid"].shape, s["mc"], s["C"], ids=ids)
+    np.testing.assert_array_equal(got_cand.numpy(), np.asarray(want_cand))
+    got_q = tfg._build_queries(s["axes"], block, s["dims"], s["sz"], ids=ids)
+    for g, w in zip(got_q, want_q):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode,power,block", [
+    ("sibson", 2.0, (2, 4, 8)),
+    ("sibson", 2.0, (4, 4, 8)),
+    ("idw", 2.0, (2, 4, 8)),
+    ("idw", 2.0, (4, 4, 8)),
+    ("idw", 3.0, (2, 4, 8)),
+])
+def test_fused_eval_plain_matches_pallas_kernel(mode, power, block):
+    s = _jax_setup(fx.corner_slab(), 10, block)
+    cand, q = _jax_panel(s, block)
+    m2 = np.float32(s["margin"] * s["margin"])
+    want = np.asarray(jfg._fused_eval(
+        jnp.asarray([[m2]], jnp.float32), cand, *q, block, s["dims"],
+        s["sz"], 10, s["V"], s["C"], mode, power, interpret=True))
+    got = tfg._fused_eval_plain(m2, _torch(cand), *(_torch(a) for a in q),
+                                block, s["sz"], 10, s["V"], s["C"], mode,
+                                power).numpy()
+    V = s["V"]
+    assert (want[:, :, V] == 0).any(), "fixture must have uncovered nodes"
+    np.testing.assert_array_equal(got[:, :, V] == 0, want[:, :, V] == 0)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_reassemble_and_survey_match_jax():
+    block = (2, 4, 8)
+    s = _jax_setup(fx.corner_slab(), 10, block)
+    rng = np.random.default_rng(2)
+    raw = rng.normal(size=(int(np.prod(s["dims"])), block[0] // s["sz"], 8,
+                           s["sz"] * block[1] * block[2])).astype(np.float32)
+    den = raw[:, :, 3]
+    den[den < 0.3] = 0.0               # uncovered nodes for the survey
+    shape = s["grid"].shape
+    want = np.asarray(jfg._reassemble(jnp.asarray(raw), block, s["dims"],
+                                      s["sz"], shape))
+    got = tfg._reassemble(_torch(raw), block, s["dims"], s["sz"], shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+    skip = np.zeros(shape, bool)
+    skip[:, :3] = True
+    for sk in (None, skip):
+        w = jfg._repair_survey(jnp.asarray(want[..., 3]),
+                               None if sk is None else jnp.asarray(sk),
+                               block, s["dims"], 64)
+        g = tfg._repair_survey(got[..., 3],
+                               None if sk is None else torch.from_numpy(sk),
+                               block, s["dims"], 64)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_fused_repair_matches_jax(mode):
+    """The widened-margin repair on the corner-slab cloud: the same nodes
+    certified, the same values, the same uncovered tail."""
+    block, k = (2, 4, 8), 10
+    s = _jax_setup(fx.corner_slab(), k, block)
+    cand, q = _jax_panel(s, block)
+    out = jfg._fused_eval(jnp.asarray([[s["margin"] ** 2]], jnp.float32),
+                          cand, *q, block, s["dims"], s["sz"], k, s["V"],
+                          s["C"], mode, 2.0, interpret=True)
+    out = jfg._reassemble(out, block, s["dims"], s["sz"], s["grid"].shape)
+    field, den = out[..., :3], out[..., 3]
+    assert int((np.asarray(den) == 0).sum()) > 50, "fixture must need repair"
+    want = jfg.fused_repair(field, den, None, s["cells"], s["values_sorted"],
+                            s["grid"], k, mode, 2.0, block,
+                            float(s["margin"]), interpret=True)
+    got = tfg.fused_repair(_torch(field), _torch(den), None,
+                           fx.carry_cells(s["cells"]),
+                           _torch(s["values_sorted"]),
+                           create_grid(*fx.corner_slab()[2:]), k, mode, 2.0,
+                           block, float(s["margin"]))
+    assert want is not None and got is not None
+    assert got[2] == want[2]
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_fused_eval_input_checks():
+    block, sz, C = (2, 4, 8), 2, 128
+    cand = torch.zeros((8, 2 * C))
+    q = torch.zeros((2, 1, 64))
+    out = tfg._fused_eval(1.0, cand, q, q, q, block, sz, 4, 3, C, "idw", 2.0)
+    assert out.shape == (2, 1, 8, 64)
+    with pytest.raises(ValueError, match="mode"):
+        tfg._fused_eval(1.0, cand, q, q, q, block, sz, 4, 3, C, "rbf", 2.0)
+    with pytest.raises(ValueError, match="cand"):
+        tfg._fused_eval(1.0, cand[:, :-1], q, q, q, block, sz, 4, 3, C,
+                        "idw", 2.0)
+    with pytest.raises(ValueError, match="queries"):
+        tfg._fused_eval(1.0, cand, q[:1], q, q, block, sz, 4, 3, C, "idw",
+                        2.0)
+    with pytest.raises(ValueError, match="channels"):
+        tfg._fused_eval(1.0, cand, q, q, q, block, sz, 4, 6, C, "idw", 2.0)
+    meta = torch.zeros((8, 2 * C), device="meta")
+    qm = torch.zeros((2, 1, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfg._fused_eval(1.0, meta, qm, qm, qm, block, sz, 4, 3, C, "idw", 2.0)

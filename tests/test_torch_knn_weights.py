@@ -1,0 +1,172 @@
+"""The port's IDW/sibson weights, scattered interpolators and the whole
+grid slice against the JAX package on the same inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+from ptv_interpolation_tpu.grid import create_grid as jax_create_grid
+from ptv_interpolation_tpu.interpolate import knn_weights as jkw
+from ptv_interpolation_tpu.ops.fused_grid_knn import (
+    fused_grid_weighted_interpolate as jax_fused_grid_weighted_interpolate)
+from ptv_interpolation_tpu_torch.grid import create_grid
+from ptv_interpolation_tpu_torch.interpolate import knn_weights as tkw
+from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+import torch_port_fixtures as fx
+
+torch.set_num_threads(2)
+
+
+def _dist_and_mask(seed=4):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.05, 6.0, size=(64, 12)).astype(np.float32)
+    ok = rng.uniform(size=d.shape) > 0.2
+    ok[0] = False                      # a row with no valid neighbour
+    return d, ok
+
+
+@pytest.mark.parametrize("power", [2.0, 3.0])
+def test_idw_weights_match_jax(power):
+    d, ok = _dist_and_mask()
+    for mask in (None, ok):
+        want = np.asarray(jkw._idw_weights(d, power, mask))
+        got = tkw._idw_weights(torch.from_numpy(d), power,
+                               None if mask is None else torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def test_sibson_weights_match_jax():
+    d, ok = _dist_and_mask()
+    for mask in (None, ok):
+        want = np.asarray(jkw._sibson_weights(d, mask))
+        got = tkw._sibson_weights(torch.from_numpy(d),
+                                  None if mask is None
+                                  else torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("topk", [False, True])
+def test_panel_weights_match_jax(topk):
+    d, ok = _dist_and_mask()
+    sq = np.sort(d, axis=1) ** 2 if topk else None
+    for jfn, tfn in ((jkw._sibson_panel_weights(), tkw._sibson_panel_weights()),
+                     (jkw._idw_panel_weights(2.0), tkw._idw_panel_weights(2.0))):
+        assert tfn.canned_mode == jfn.canned_mode
+        want = np.asarray(jfn(d, ok, sq))
+        got = tfn(torch.from_numpy(d), torch.from_numpy(ok),
+                  None if sq is None else torch.from_numpy(sq))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode,k,n_pts", [
+    ("sibson", 10, 2000), ("idw", 10, 2000), ("sibson", 20, 12),
+])
+def test_scattered_interpolate_matches_jax(mode, k, n_pts):
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0, 20, size=(n_pts, 3)).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0]), np.cos(pts[:, 1]), pts[:, 2]],
+                    axis=-1).astype(np.float32)
+    q = rng.uniform(-1, 21, size=(500, 3)).astype(np.float32)
+    if mode == "sibson":
+        want = jkw.sibson_interpolate(pts, vals, q, k=k, query_tile=128)
+        got = tkw.sibson_interpolate(pts, vals, q, k=k, query_tile=128,
+                                     device="cpu")
+    else:
+        want = jkw.idw_interpolate(pts, vals, q, k=k, query_tile=128)
+        got = tkw.idw_interpolate(pts, vals, q, k=k, query_tile=128,
+                                  device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+_SLICE_CASES = [
+    ("uniform", "sibson", 12, (2, 4, 8)),
+    ("uniform", "idw", 12, (2, 4, 8)),
+    ("uniform", "sibson", 12, (4, 4, 8)),
+    ("void_region", "sibson", 8, (2, 4, 8)),
+    ("void_region", "idw", 8, (2, 4, 8)),
+    ("skip_mask_cloud", "idw", 8, (2, 4, 8)),
+    ("skip_mask_cloud", "sibson", 8, (2, 4, 8)),
+    ("clustered", "sibson", 10, (2, 4, 8)),
+    ("clustered", "idw", 10, (2, 4, 8)),
+    ("ragged", "sibson", 10, (2, 4, 8)),
+    ("ragged", "idw", 10, (4, 4, 8)),
+]
+
+
+@pytest.mark.parametrize("cloud,mode,k,block", _SLICE_CASES)
+def test_grid_slice_matches_jax(cloud, mode, k, block):
+    """The port's entry points on the CPU against the JAX fused path in
+    interpret mode, at every node. Tolerance rtol 1e-4 / atol 1e-5: the
+    JAX package repairs on the CPU through its streaming ladder, which
+    differs from the fused repair by up to 1e-5."""
+    pts, vals, bounds, n = getattr(fx, cloud)()
+    skip = fx.skip_mask() if cloud == "skip_mask_cloud" else None
+    want = np.asarray(jax_fused_grid_weighted_interpolate(
+        pts, vals, jax_create_grid(bounds, n), k=k, mode=mode, block=block,
+        skip_mask=skip, interpret=True))
+    entry = (tkw.sibson_grid_interpolate if mode == "sibson"
+             else tkw.idw_grid_interpolate)
+    before = tfg._fused_eval.launches
+    got = entry(pts, vals, create_grid(bounds, n), k=k, block=block,
+                skip_mask=skip, device="cpu")
+    assert tfg._fused_eval.launches == before == 0  # CPU: no kernel launch
+    assert got.device.type == "cpu" and got.shape == want.shape
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_grid_slice_after_refinement_matches_bruteforce(mode):
+    """A cloud whose setup refines the cell list (the JAX package's CPU
+    route there takes minutes): every node against exact brute-force kNN,
+    which the τ-bisection selection matches bar f32 ties."""
+    pts, vals, bounds, n = fx.dense_knot()
+    grid = create_grid(bounds, n)
+    entry, exact = ((tkw.sibson_grid_interpolate, tkw.sibson_interpolate)
+                    if mode == "sibson" else
+                    (tkw.idw_grid_interpolate, tkw.idw_interpolate))
+    got = entry(pts, vals, grid, k=10, block=(2, 4, 8), device="cpu")
+    Z, Y, X = np.meshgrid(grid.z, grid.y, grid.x, indexing="ij")
+    q = np.stack([X.ravel(), Y.ravel(), Z.ravel()], -1).astype(np.float32)
+    want = exact(pts, vals, q, k=10, device="cpu").reshape(got.shape)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_grid_entry_points_refuse_unported_routes():
+    pts, vals, bounds, n = fx.uniform(n_pts=1000, n=12)
+    grid = create_grid(bounds, n)
+    with pytest.raises(NotImplementedError, match="exact_topk"):
+        tkw.sibson_grid_interpolate(pts, vals, grid, k=8, exact_topk=True,
+                                    device="cpu")
+    with pytest.raises(NotImplementedError, match="exact_topk"):
+        tkw.idw_grid_interpolate(pts, vals, grid, k=8, exact_topk=True,
+                                 device="cpu")
+    for backend in ("xla", "pallas"):
+        with pytest.raises(NotImplementedError, match=backend):
+            tkw.sibson_grid_interpolate(pts, vals, grid, k=8,
+                                        backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        tkw.sibson_grid_interpolate(pts, vals, grid, k=8, tau_mode="approx",
+                                    device="cpu")
+    with pytest.raises(ValueError, match="custom weight_fn"):
+        tgk.grid_weighted_interpolate(pts, vals, grid, 8,
+                                      lambda d, m, s: 1.0 / (d + 1e-6),
+                                      backend="fused", device="cpu")
+    with pytest.raises(tfg.FusedCapacityError):
+        tfg.fused_grid_weighted_interpolate(pts, vals, grid, 8, max_panel=1,
+                                            device="cpu")
+
+
+def test_cuda_device_raises_without_a_gpu():
+    pts, vals, bounds, n = fx.uniform(n_pts=500, n=8)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device='cuda' is valid here")
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        tkw.sibson_grid_interpolate(pts, vals, create_grid(bounds, n), k=8,
+                                    device="cuda")
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        tkw.idw_interpolate(pts, vals, pts[:4], k=8, device="cuda")

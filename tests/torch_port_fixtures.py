@@ -1,0 +1,100 @@
+"""Point clouds shared by the ``test_torch_*.py`` files, which hold the
+PyTorch port against the JAX package on the same numpy inputs. Each cloud
+is made from a seed and returns ``(points, values, bounds, n)``; the grid is
+``create_grid(bounds, n)``."""
+
+import numpy as np
+
+
+def uniform(n_pts=4000, n=24, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, n, size=(n_pts, 3)).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 1] * 0.2),
+                     1.0 + 0.1 * pts[:, 2] / n], axis=-1).astype(np.float32)
+    return pts, vals, ((0, n + 1),) * 3, n
+
+
+def ragged():
+    """A grid whose shape is no multiple of the blocks: padded axes, and
+    blocks that straddle the grid's far faces. Returns a resolution
+    (nx, ny, nz) in place of ``n``."""
+    rng = np.random.default_rng(17)
+    pts = rng.uniform([0, 0, 0], [20, 17, 12], size=(2500, 3)).astype(
+        np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 2] * 0.4),
+                     pts[:, 1] * 0.1], axis=-1).astype(np.float32)
+    return pts, vals, ((0, 21), (0, 18), (0, 13)), (21, 18, 13)
+
+
+def dense_knot():
+    """A uniform cloud with 1600 points packed into a 0.5-wide knot: the
+    first cell size puts more than 1024 points in one candidate row, so
+    the setup refines the cell list once."""
+    rng = np.random.default_rng(19)
+    bg = rng.uniform(0, 24, size=(2500, 3))
+    knot = 12.0 + rng.uniform(0, 0.5, size=(1600, 3))
+    pts = np.concatenate([bg, knot]).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 1] * 0.2),
+                     np.ones(len(pts))], axis=-1).astype(np.float32)
+    return pts, vals, ((0, 25),) * 3, 24
+
+
+def void_region():
+    """The cloud fills only z < 5 of a 16³ grid: the upper nodes are
+    uncovered and go to repair."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform([0, 0, 0], [16, 16, 5], size=(800, 3)).astype(
+        np.float32)
+    vals = np.stack([np.sin(pts[:, 0]), np.cos(pts[:, 1]),
+                     np.ones(len(pts))], axis=-1).astype(np.float32)
+    return pts, vals, ((0, 17),) * 3, 16
+
+
+def skip_mask_cloud():
+    """Constant values under a void; ``skip`` marks the void's nodes."""
+    rng = np.random.default_rng(13)
+    pts = rng.uniform([0, 0, 0], [16, 16, 5], size=(800, 3)).astype(
+        np.float32)
+    vals = np.ones((len(pts), 3), np.float32)
+    return pts, vals, ((0, 17),) * 3, 16
+
+
+def skip_mask():
+    skip = np.zeros((16, 16, 16), bool)
+    skip[8:] = True
+    return skip
+
+
+def clustered():
+    """Gaussian blobs on a sparse background."""
+    rng = np.random.default_rng(9)
+    n = 24
+    blobs = [rng.normal(loc=c, scale=1.5, size=(1200, 3))
+             for c in ((6, 6, 6), (18, 16, 8), (10, 18, 18))]
+    bg = rng.uniform(0, n, size=(300, 3))
+    pts = np.clip(np.concatenate(blobs + [bg]), 0, n).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.4), np.cos(pts[:, 1] * 0.3),
+                     1.0 + 0.05 * pts[:, 2]], axis=-1).astype(np.float32)
+    return pts, vals, ((0, n + 1),) * 3, n
+
+
+def corner_slab():
+    """The cloud fills z < 9 of a 24³ grid: coverage fails near the far
+    faces, where repair certifies most nodes at the widened margin."""
+    rng = np.random.default_rng(21)
+    n = 24
+    pts = rng.uniform([0, 0, 0], [n, n, 9], size=(2500, 3)).astype(
+        np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 1] * 0.2),
+                     1.0 + 0.02 * pts[:, 2]], axis=-1).astype(np.float32)
+    return pts, vals, ((0, n + 1),) * 3, n
+
+
+def carry_cells(jax_cells, device="cpu"):
+    """The JAX package's cell list as the port's, through the host."""
+    from ptv_interpolation_tpu_torch.convert import cells_from_numpy
+    return cells_from_numpy(
+        np.asarray(jax_cells.starts), np.asarray(jax_cells.order),
+        np.asarray(jax_cells.points_sorted), np.asarray(jax_cells.origin),
+        np.asarray(jax_cells.inv_cell), jax_cells.dims, jax_cells.cap,
+        jax_cells.n_points, inv_host=jax_cells.inv_host, device=device)
