@@ -2,15 +2,16 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA device, the CUDA toolkit's ``nvcc`` and scipy, and never
-imports JAX. Phases, each printing its own lines; every failure raises and
-the script exits non-zero:
+It needs one CUDA device, the CUDA toolkit's ``nvcc``, scipy and pandas, and
+never imports JAX. Phases, each printing its own lines; every failure raises
+and the script exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off;
-2. build: the fused grid kNN kernel from ``ptv_interpolation_tpu_torch/ops/
-   csrc/fused_grid_knn.cu`` with ``nvcc`` (timed, counted as set-up);
-3. kernel against its plain PyTorch version on the headline problem
+2. build: both kernels of ``ptv_interpolation_tpu_torch/ops/csrc/`` with
+   ``nvcc``, one compiler per source, all started together (timed, counted
+   as set-up);
+3. the grid kernel against its plain PyTorch version on the headline problem
    (``bench.make_problem``: 1M points → 256³, k=50, block (8,8,16)): on a
    subset of blocks with the corner and edge blocks, sibson and IDW, then
    over the full panel (16 384 blocks × 4 sub-tiles), timed;
@@ -18,7 +19,18 @@ the script exits non-zero:
    warm-up and 3 timed runs, the kernel's launch counts for the main pass
    and for repair, peak memory, a stage-by-stage breakdown, and relative
    L2 against the f64 scipy reference on 20k interior nodes and on 4k
-   nodes of the faces, edges and corners (served by repair).
+   nodes of the faces, edges and corners (served by repair);
+5. the MAD kernel against its plain version on the filter's panel of the
+   phase-6 problem: a subset of scatter blocks with the 8 domain corners
+   and the planted outliers at k = 30 and 25, then the full panel at
+   k = 30, timed;
+6. the pipeline: ``run_pipeline(..., device="cuda")`` at the production
+   shape (a 486×336×322 raw mask, 650 000 tracks, downscale 2 → a
+   161×168×243 grid; MAD filter k=30, boundary particles, sibson k=50) —
+   one warm-up run through CSV/TIFF/NPZ files and 3 timed runs on arrays,
+   with both kernels' launch counts, the filter branch, stage walls, peak
+   memory, and checks of the decisions (f64 cKDTree), the field (f64
+   scipy sibson) and the solid (exactly 0).
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line ``{"ok": true, "device": {...}}``.
@@ -57,17 +69,25 @@ def phase_environment(torch):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from ptv_interpolation_tpu_torch.ops import cuda_build, fused_grid_knn
+    from ptv_interpolation_tpu_torch.ops import fused_mad
     log("== 2. build")
+    names = ("fused_grid_knn", "fused_mad")
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(cuda_build.build_library, names))
     fused_grid_knn._kernel_lib()
+    fused_mad._kernel_lib()
     secs = time.perf_counter() - t0
-    log(f"fused_grid_knn.cu built and loaded in {secs:.2f} s")
-    build_log = cuda_build.BUILD_DIR / "fused_grid_knn.log"
-    if build_log.exists():
-        for line in build_log.read_text().splitlines():
-            if "ptxas" in line:
-                log(f"  {line.strip()}")
+    log(f"{', '.join(n + '.cu' for n in names)} built and loaded in "
+        f"{secs:.2f} s")
+    for name in names:
+        build_log = cuda_build.BUILD_DIR / f"{name}.log"
+        if build_log.exists():
+            for line in build_log.read_text().splitlines():
+                if "ptxas" in line and ("registers" in line or "spill" in line):
+                    log(f"  {name}: {line.strip()}")
     return secs
 
 
@@ -281,6 +301,305 @@ def phase_main_path(torch, pts, vals, grid, k):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The pipeline at the production shape (phases 5 and 6)
+# ---------------------------------------------------------------------------
+
+RAW_SHAPE = (486, 336, 322)        # raw mask (z, y, x); downscale 2 → 243×168×161
+N_TRACKS = 650_000
+MAD_RTOL, MAD_ATOL = 1e-6, 1e-7    # d², τ², bisection midpoints bit-equal
+PIPE_L2_LIMIT = 1e-6
+AGREE_LIMIT = 0.9999
+
+
+def pipeline_config(**kw):
+    from ptv_interpolation_tpu_torch.pipeline import PipelineConfig
+    return PipelineConfig(
+        method="sibson", sibson_neighbors=50, downscale=2.0,
+        boundary_particles=True, boundary_sampling=50, boundary_thickness=2,
+        filter_outliers=True, filter_neighbors=30, filter_threshold=4.0,
+        filter_max_speed=5.0, divergence_free=False, verbose=False, **kw)
+
+
+def make_pipeline_problem(seed=0):
+    """The production shape of ``benchmarks/production_shape.py`` at raw
+    resolution: its solid formula (line 46) evaluated at half the raw-voxel
+    offsets (92% fluid), 650 000 tracks uniform in the fluid with its
+    values (lines 57-61) at half the raw coordinates, 0.2% of the tracks
+    scaled ×8 (speed above vmax 5: the threshold filter) and another 0.2%
+    ×2.5 (the MAD filter). Returns ``(fluid, pts, vals, thr_idx,
+    mad_idx)``."""
+    nz, ny, nx = RAW_SHAPE
+    rng = np.random.default_rng(seed)
+    az = (np.arange(nz) - nz / 2) / 2
+    ay = (np.arange(ny) - ny / 2) / 2
+    ax = (np.arange(nx) - nx / 2) / 2
+    solid = ((np.sin(az * 0.08)[:, None, None] * np.sin(ay * 0.14)[None, :, None])
+             * np.sin(ax * 0.11)[None, None, :]) > 0.55
+    fluid = ~solid
+    pts = rng.uniform((0, 0, 0), (nx, ny, nz),
+                      size=(int(N_TRACKS * 1.3), 3)).astype(np.float32)
+    idx = np.clip(pts.astype(int), 0, (nx - 1, ny - 1, nz - 1))
+    pts = pts[fluid[idx[:, 2], idx[:, 1], idx[:, 0]]][:N_TRACKS]
+    half = pts / 2
+    vals = np.stack([0.05 * np.sin(half[:, 0] * 0.05),
+                     0.05 * np.cos(half[:, 1] * 0.04),
+                     1.0 + 0.1 * np.sin(half[:, 2] * 0.03)],
+                    axis=-1).astype(np.float32)
+    planted = rng.choice(len(pts), 2 * (len(pts) // 500), replace=False)
+    thr_idx, mad_idx = np.sort(planted[::2]), np.sort(planted[1::2])
+    vals[thr_idx] *= 8.0
+    vals[mad_idx] *= 2.5
+    return fluid, pts, vals, thr_idx, mad_idx
+
+
+def _filter_input(fluid, pts, vals):
+    """The cloud the kNN-MAD filter sees: clipped to the domain, then
+    through the speed threshold. Returns the cloud and its source rows."""
+    from ptv_interpolation_tpu_torch.io import PointCloud
+    nz, ny, nx = fluid.shape
+    p = pts
+    inside = ((p[:, 0] >= 0) & (p[:, 0] < nx) & (p[:, 1] >= 0)
+              & (p[:, 1] < ny) & (p[:, 2] >= 0) & (p[:, 2] < nz))
+    v = vals
+    under = np.sqrt((v * v).sum(axis=-1)) <= 5.0
+    rows = np.flatnonzero(inside & under)
+    return PointCloud(pts[rows], vals[rows]), rows
+
+
+def _captured_mad_eval(torch, cloud, k):
+    """The MAD kernel's inputs on this cloud, from one fused_mad_filter
+    call on the card (its launch is not a main-path launch)."""
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    seen = {}
+    orig = fm._mad_eval
+
+    def grab(*a):
+        seen["args"] = a
+        return orig(*a)
+
+    grab.launches = orig.launches
+    fm._mad_eval = grab
+    try:
+        speed = np.sqrt((cloud.values ** 2).sum(axis=-1))
+        res = fm.fused_mad_filter(cloud.points, speed, k, 4.0, device="cuda")
+    finally:
+        orig.launches = grab.launches
+        fm._mad_eval = orig
+    if res is None:
+        raise AssertionError("fused_mad_filter declined the production panel")
+    return seen["args"]
+
+
+def _compare_mad(torch, got, want, what):
+    if not torch.equal(got[:, 0], want[:, 0]):
+        n = int((got[:, 0] != want[:, 0]).sum())
+        raise AssertionError(f"{what}: keep|covered differs at {n} slots")
+    fin = torch.isfinite(want[:, 1])
+    if not torch.equal(fin, torch.isfinite(got[:, 1])):
+        raise AssertionError(f"{what}: padding (+inf) pattern differs")
+    g = torch.where(fin[:, None], got[:, 1:4], 0.0)
+    w = torch.where(fin[:, None], want[:, 1:4], 0.0)
+    if not torch.allclose(g, w, rtol=MAD_RTOL, atol=MAD_ATOL):
+        bad = ~torch.isclose(g, w, rtol=MAD_RTOL, atol=MAD_ATOL)
+        raise AssertionError(f"{what}: {int(bad.sum())} of rows 1-3 outside "
+                             f"rtol {MAD_RTOL} atol {MAD_ATOL}")
+    err = float((g - w).abs().max())
+    n_unc = int(((got[:, 0] < 2) & fin).sum())
+    log(f"  {what}: keep|covered identical ({n_unc} real slots uncovered), "
+        f"max |kernel - plain| on rows 1-3 = {err:.3e}")
+    return err
+
+
+def phase_mad_kernel(torch, fluid, pts, vals, thr_idx, mad_idx):
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    log("== 5. MAD kernel against its plain version")
+    cloud, rows = _filter_input(fluid, pts, vals)
+    # the 8 domain corners' nearest tracks and the planted MAD outliers
+    p = cloud.points
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    corners = [np.argmin(((p - np.array([x, y, z])) ** 2).sum(axis=1))
+               for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+               for z in (lo[2], hi[2])]
+    outliers = np.flatnonzero(np.isin(rows, mad_idx))[:64]
+    probe = torch.as_tensor(p[np.concatenate([corners, outliers])],
+                            device="cuda")
+    errs = []
+    for k in (30, 25):
+        m2, cand, qx, qy, qz, qs, kk, thr, Bt, C = _captured_mad_eval(
+            torch, cloud, k)
+        nb = cand.shape[1] // C
+        if k == 30:
+            log(f"  production panel: {nb} scatter blocks × Bt = {Bt} "
+                f"queries, C = {C}, margin² = {float(m2):.4f}")
+        # the blocks whose query rows hold a probe point
+        hit = torch.zeros(nb, dtype=torch.bool, device="cuda")
+        for i in range(0, len(probe), 64):
+            q = probe[i:i + 64]
+            hit |= ((qx[None, :, 0, :] == q[:, 0, None, None])
+                    & (qy[None, :, 0, :] == q[:, 1, None, None])
+                    & (qz[None, :, 0, :] == q[:, 2, None, None])).any(
+                        dim=2).any(dim=0)
+        ids = torch.nonzero(hit).squeeze(1)
+        sub_cand = cand.view(4, nb, C)[:, ids].reshape(4, -1).contiguous()
+        sub_q = [a[ids].contiguous() for a in (qx, qy, qz, qs)]
+        args = (m2, sub_cand, *sub_q, kk, thr, Bt, C)
+        got, want = fm._mad_eval(*args), fm._mad_eval_plain(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare_mad(torch, got, want, f"k={k}, {len(ids)} blocks "
+                                 f"with the 8 corners and "
+                                 f"{len(outliers)} planted outliers"))
+        if k == 30:
+            full = (m2, cand, qx, qy, qz, qs, kk, thr, Bt, C)
+    ms = _cuda_ms(torch, lambda: fm._mad_eval(*full), reps=5)
+    plain_ms = _cuda_ms(torch, lambda: fm._mad_eval_plain(*full), reps=1)
+    got, want = fm._mad_eval(*full), fm._mad_eval_plain(*full)
+    torch.cuda.synchronize()
+    errs.append(_compare_mad(torch, got, want, "k=30, full production panel"))
+    log(f"  full panel, k=30: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return max(errs), ms, plain_ms
+
+
+def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
+    import dataclasses
+    import tempfile
+    from scipy.spatial import cKDTree
+    from bench import scipy_reference_values
+    from ptv_interpolation_tpu_torch import filtering, pipeline
+    from ptv_interpolation_tpu_torch.io import (PointCloud,
+                                                load_velocity_field,
+                                                save_ptv_data)
+    from ptv_interpolation_tpu_torch.io.tiff import write_tiff
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    from ptv_interpolation_tpu_torch.utils import StageTimings
+    log("== 6. pipeline: run_pipeline on cuda at the production shape")
+    config = pipeline_config()
+
+    # warm-up through files: CSV tracks, a TIFF of the solid (inverted on
+    # load, as a scan's mask arrives), the NPZ read back
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, tif, npz = (os.path.join(tmp, f) for f in
+                         ("tracks.csv", "solid.tif", "field.npz"))
+        t0 = time.perf_counter()
+        save_ptv_data(csv, PointCloud(pts, vals))
+        write_tiff(tif, ~fluid)
+        log(f"  wrote {len(pts)} tracks to CSV and the {fluid.shape} solid "
+            f"mask to TIFF in {time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(dataclasses.replace(
+            config, input=csv, mask=tif, invert_mask=True, output_npz=npz),
+            device="cuda")
+        torch.cuda.synchronize()
+        log(f"  warm-up run through files: {time.perf_counter() - t0:.4f} s")
+        back = load_velocity_field(npz)
+        for f in ("x", "y", "z", "u", "v", "w", "mask"):
+            if not np.array_equal(getattr(back, f), getattr(res, f)):
+                raise AssertionError(f"NPZ field {f} differs from the result")
+        log("  NPZ read back: identical to the returned FieldResult")
+
+    # the timed runs, on arrays; decisions and the final cloud captured
+    seen = {}
+    scatter, interp = filtering.knn_mad_mask_scatter, pipeline.interpolate_field
+
+    def grab_scatter(points, values, **kw):
+        keep, radius = scatter(points, values, **kw)
+        seen["keep"] = keep
+        return keep, radius
+
+    def grab_interp(points, values, grid, **kw):
+        seen["cloud"] = (np.asarray(points), np.asarray(values))
+        return interp(points, values, grid, **kw)
+
+    grab_scatter.last_branch = None
+    filtering.knn_mad_mask_scatter = grab_scatter
+    pipeline.interpolate_field = grab_interp
+    walls, launches, all_stages = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(3):
+            timings = StageTimings()
+            fm._mad_eval.launches = 0
+            fg._fused_eval.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipeline.run_pipeline(config, cloud=PointCloud(pts, vals),
+                                        mask_raw=fluid, timings=timings,
+                                        device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append((fm._mad_eval.launches, fg._fused_eval.launches))
+            all_stages.append(dict(timings.stages))
+            log(f"  run {i + 1}: {walls[-1]:.4f} s; launches: fused_mad "
+                f"{launches[-1][0]}, fused_grid_knn {launches[-1][1]}; "
+                + ", ".join(f"{n} {t:.4f}" for n, t in timings.stages.items()))
+            if min(launches[-1]) <= 0:
+                raise AssertionError("the pipeline run did not launch both "
+                                     "kernels")
+        branch = grab_scatter.last_branch
+    finally:
+        filtering.knn_mad_mask_scatter = scatter
+        pipeline.interpolate_field = interp
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls))
+    med_run = int(np.argsort(walls)[1])
+    log(f"  median wall {wall:.4f} s (stages of that run: "
+        + ", ".join(f"{n} {t:.4f}" for n, t in all_stages[med_run].items())
+        + f"); peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  filter branch for the uncovered points: {branch[0]}, "
+        f"{branch[1]} points")
+
+    # decisions against an independent f64 reference on the filter's input
+    cloud, rows = _filter_input(fluid, pts, vals)
+    keep = seen["keep"]
+    p = cloud.points.astype(np.float64)
+    s = np.sqrt((cloud.values.astype(np.float64) ** 2).sum(axis=-1))
+    _, idx = cKDTree(p).query(p, k=31, workers=-1)
+    neigh = s[idx[:, 1:]]
+    med = np.median(neigh, axis=1)
+    mad = np.median(np.abs(neigh - med[:, None]), axis=1)
+    ref = np.abs(s - med) / (mad + 1e-6) <= 4.0
+    agree = float((keep == ref).mean())
+    planted = np.isin(rows, mad_idx)
+    log(f"  decisions: {int((keep != ref).sum())} of {len(ref)} disagree "
+        f"with the f64 cKDTree reference (agreement {agree:.6f}, limit "
+        f"{AGREE_LIMIT}); {int((~keep).sum())} removed, "
+        f"{int(planted.sum())} planted MAD outliers, "
+        f"{int(keep[planted].sum())} of them kept")
+    if agree < AGREE_LIMIT or keep[planted].any():
+        raise AssertionError("MAD decisions fail the reference check")
+
+    # the field against f64 scipy sibson k=50 on the final cloud
+    fpts, fvals = seen["cloud"]
+    mask = res.mask
+    rng = np.random.default_rng(1)
+    fl = np.flatnonzero(mask.reshape(-1))
+    nodes = np.unravel_index(
+        rng.choice(fl, min(20_000, len(fl)), replace=False), mask.shape)
+    iz, iy, ix = nodes
+    queries = np.stack([res.x[ix], res.y[iy], res.z[iz]],
+                       axis=-1).astype(np.float32)
+    want = scipy_reference_values(fpts, fvals, queries)
+    ours = np.stack([res.u[nodes], res.v[nodes], res.w[nodes]],
+                    axis=-1).astype(np.float64)
+    l2 = float(np.linalg.norm(ours - want) / np.linalg.norm(want))
+    log(f"  field: relative L2 vs f64 scipy sibson k=50 on {len(iz)} fluid "
+        f"nodes {l2:.3e} (limit {PIPE_L2_LIMIT:.0e}); final cloud "
+        f"{len(fpts)} tracks incl. boundary particles; grid {mask.shape}")
+    if not l2 <= PIPE_L2_LIMIT:
+        raise AssertionError(f"relative L2 {l2:.3e} exceeds {PIPE_L2_LIMIT}")
+    solid = ~mask
+    n_bad = sum(int(np.count_nonzero(getattr(res, f)[solid]))
+                for f in "uvw")
+    log(f"  solid: {int(solid.sum())} nodes, {n_bad} nonzero values")
+    if n_bad:
+        raise AssertionError("solid nodes are not exactly 0")
+    if not all(np.isfinite(getattr(res, f)).all() for f in "uvw"):
+        raise AssertionError("non-finite values in the field")
+    return (sum(n for n, _ in launches), sum(n for _, n in launches))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -297,16 +616,31 @@ def main():
     grid = create_grid(((0, GRID_N + 1),) * 3, GRID_N)
     max_err, ms, plain_ms = phase_kernel(torch, pts, vals, grid, K)
     launches = phase_main_path(torch, pts, vals, grid, K)
+    del pts, vals
+    problem = make_pipeline_problem()
+    mad_err, mad_ms, mad_plain_ms = phase_mad_kernel(torch, *problem)
+    mad_launches, grid_launches = phase_pipeline(torch, *problem)
+    log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
+        f"(phase 6); fused_mad {mad_launches} (phase 6)")
 
     log(json.dumps({"kernels": [{
         "name": "fused_grid_knn",
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_grid_knn.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_grid_knn.py:175",
-        "launches": launches,
+        "launches": launches + grid_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_mad",
+        "route": "cuda",
+        "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_mad.cu",
+        "replaces": "ptv_interpolation_tpu/ops/fused_mad.py:93",
+        "launches": mad_launches,
+        "max_abs_err": mad_err,
+        "ms": mad_ms,
+        "plain_ms": mad_plain_ms,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

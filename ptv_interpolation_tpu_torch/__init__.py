@@ -2,10 +2,46 @@
 
 Module paths and function names mirror the JAX package, which stays the
 reference the port is tested against. This package imports ``torch`` and
-numpy and never ``jax``. Its one hand-written kernel lives in
-``ops/csrc/fused_grid_knn.cu`` and is built with ``nvcc`` at first use.
+numpy and never ``jax``. Ported so far: the grid interpolation path
+(sibson/IDW onto a regular grid) and the production pipeline up to
+divergence cleaning (``pipeline.run_pipeline``: load, domain clip,
+threshold and kNN-MAD outlier filters, mask resample, boundary particles,
+interpolation, solid zeroing, NPZ/TIFF artifacts).
+
+Two hand-written CUDA kernels, built with ``nvcc`` at first use:
+``ops/csrc/fused_grid_knn.cu`` (the grid kNN τ-bisection weighted sums)
+and ``ops/csrc/fused_mad.cu`` (the kNN-MAD filter's statistics).
 """
 
-from ptv_interpolation_tpu_torch.grid import Grid, create_grid
+from ptv_interpolation_tpu_torch.grid import (
+    Grid,
+    create_grid,
+    extract_boundary_particles,
+    sample_mask_on_grid,
+)
+from ptv_interpolation_tpu_torch.io import (
+    FieldResult,
+    PointCloud,
+    load_mask,
+    load_ptv_data,
+    load_velocity_field,
+    save_field_npz,
+    save_field_tiff,
+)
+from ptv_interpolation_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
-__all__ = ["Grid", "create_grid"]
+__all__ = [
+    "Grid",
+    "create_grid",
+    "sample_mask_on_grid",
+    "extract_boundary_particles",
+    "PointCloud",
+    "FieldResult",
+    "load_ptv_data",
+    "load_mask",
+    "load_velocity_field",
+    "save_field_npz",
+    "save_field_tiff",
+    "PipelineConfig",
+    "run_pipeline",
+]

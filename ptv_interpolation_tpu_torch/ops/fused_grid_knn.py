@@ -53,73 +53,87 @@ def _block_ids(ids, n_total: int, device) -> torch.Tensor:
     return torch.as_tensor(ids, dtype=torch.int64, device=device)
 
 
+def _compact_chunk(cells: CellList, lo: torch.Tensor, m32: torch.Tensor,
+                   mc: Tuple[int, int, int], C: int) -> torch.Tensor:
+    """:func:`_compact_rows` for one chunk of blocks; ``m32`` is the
+    margin as an f32 scalar tensor."""
+    mcz, mcy, mcx = mc
+    ncx, ncy, ncz = cells.dims
+    dev = cells.device
+    R = mcz * mcy
+    g = lo.shape[0]
+    roz = torch.arange(mcz, dtype=torch.int32,
+                       device=dev).repeat_interleave(mcy)
+    roy = torch.arange(mcy, dtype=torch.int32, device=dev).repeat(mcz)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # f32, in the JAX package's op order: ((lo - margin) - origin) * inv
+    base = torch.floor(((lo - m32) - cells.origin)
+                       * cells.inv_cell).to(torch.int32)           # (g, 3)
+    cz = base[:, 2:3] + roz
+    cy = base[:, 1:2] + roy                                        # (g, R)
+    row_ok = (cz >= 0) & (cz < ncz) & (cy >= 0) & (cy < ncy)
+    x0 = base[:, 0:1].clamp(0, ncx)
+    x1 = (base[:, 0:1] + mcx).clamp(0, ncx)
+    rid = (cz * ncy + cy) * ncx
+    start = torch.where(row_ok,
+                        cells.starts[torch.where(row_ok, rid + x0, zero)],
+                        zero).long()
+    end = torch.where(row_ok,
+                      cells.starts[torch.where(row_ok, rid + x1, zero)],
+                      zero).long()
+    cnt = end - start
+    incl = torch.cumsum(cnt, dim=1)                                # (g, R)
+    sl = torch.arange(C, dtype=torch.int64, device=dev).expand(g, C)
+    sl = sl.contiguous()
+    # slot → row: #(inclusive offsets ≤ slot)
+    row = torch.searchsorted(incl, sl, right=True).clamp_max(R - 1)
+    valid = sl < incl[:, -1:]
+    gidx = (torch.gather(start, 1, row)
+            + (sl - torch.gather(incl - cnt, 1, row)))
+    return torch.where(valid, gidx, cells.n_points).to(torch.int32)
+
+
+def _compact_rows(cells: CellList, lo: torch.Tensor, margin: float,
+                  mc: Tuple[int, int, int], C: int) -> torch.Tensor:
+    """For blocks whose low corners are ``lo`` ((n_blocks, 3) f32 x, y, z
+    on the cells' device), the (n_blocks, C) int32 compacted candidate
+    rows of the cell-sorted arrays; slots past a block's candidate count
+    point at the sentinel row ``cells.n_points``.
+
+    A block's candidate region is ``mcz × mcy`` CSR rows of ``mcx`` cells
+    each, starting ``margin`` below its low corner; slot → row is a batched
+    ``searchsorted`` over the rows' inclusive offsets, run in chunks of
+    blocks so that the (blocks, C) intermediates stay bounded."""
+    m32 = torch.tensor(np.float32(margin), device=cells.device)
+    n_blocks = lo.shape[0]
+    out = torch.empty((n_blocks, C), dtype=torch.int32, device=cells.device)
+    group = max(1, _CHUNK_ELEMS // max(C, mc[0] * mc[1]))
+    for s in range(0, n_blocks, group):
+        out[s:s + group] = _compact_chunk(cells, lo[s:s + group], m32, mc, C)
+    return out
+
+
 def _compact_indices(cells: CellList, axes, margin: float,
                      block: Tuple[int, int, int],
                      grid_shape: Tuple[int, int, int],
                      mc: Tuple[int, int, int], C: int,
                      ids=None) -> torch.Tensor:
-    """Per grid block, the (C,) compacted candidate rows of the
-    cell-sorted arrays; slots past the block's candidate count point at
-    the sentinel row ``cells.n_points``. Returns (n_blocks, C) int32.
-
-    The block's candidate region is ``mcz × mcy`` CSR rows of ``mcx``
-    cells each; slot → row is a batched ``searchsorted`` over the rows'
-    inclusive offsets, run in chunks of blocks so the (blocks, C)
-    intermediates stay bounded. ``ids`` (optional): evaluate only these
-    flat block indices, in this order."""
+    """Per grid block, the (C,) compacted candidate rows of
+    :func:`_compact_rows`; returns (n_blocks, C) int32. ``ids``
+    (optional): evaluate only these flat block indices, in this order."""
     bz, by, bx = block
     nz, ny, nx = grid_shape
-    nbz, nby, nbx = (_block_counts(nz, bz), _block_counts(ny, by),
-                     _block_counts(nx, bx))
-    mcz, mcy, mcx = mc
-    ncx, ncy, ncz = cells.dims
+    nby, nbx = _block_counts(ny, by), _block_counts(nx, bx)
+    nbz = _block_counts(nz, bz)
     dev = cells.device
     x_ax, y_ax, z_ax = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                         for a in axes)
-    m32 = torch.tensor(np.float32(margin), device=dev)
-    R = mcz * mcy
-    roz = torch.arange(mcz, dtype=torch.int32,
-                       device=dev).repeat_interleave(mcy)
-    roy = torch.arange(mcy, dtype=torch.int32, device=dev).repeat(mcz)
-    slots = torch.arange(C, dtype=torch.int64, device=dev)
     ids = _block_ids(ids, nbz * nby * nbx, dev)
-    n_blocks = ids.shape[0]
-    out = torch.empty((n_blocks, C), dtype=torch.int32, device=dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    group = max(1, _CHUNK_ELEMS // max(C, R))
-    for s in range(0, n_blocks, group):
-        fi = ids[s:s + group]
-        g = fi.shape[0]
-        ibz = fi // (nby * nbx)
-        iby = (fi // nbx) % nby
-        ibx = fi % nbx
-        lo = torch.stack([x_ax[ibx * bx], y_ax[iby * by], z_ax[ibz * bz]],
-                         dim=1)
-        # f32, in the JAX package's op order: ((lo - margin) - origin) * inv
-        base = torch.floor(((lo - m32) - cells.origin)
-                           * cells.inv_cell).to(torch.int32)       # (g, 3)
-        cz = base[:, 2:3] + roz
-        cy = base[:, 1:2] + roy                                    # (g, R)
-        row_ok = (cz >= 0) & (cz < ncz) & (cy >= 0) & (cy < ncy)
-        x0 = base[:, 0:1].clamp(0, ncx)
-        x1 = (base[:, 0:1] + mcx).clamp(0, ncx)
-        rid = (cz * ncy + cy) * ncx
-        start = torch.where(row_ok,
-                            cells.starts[torch.where(row_ok, rid + x0, zero)],
-                            zero).long()
-        end = torch.where(row_ok,
-                          cells.starts[torch.where(row_ok, rid + x1, zero)],
-                          zero).long()
-        cnt = end - start
-        incl = torch.cumsum(cnt, dim=1)                            # (g, R)
-        sl = slots.expand(g, C).contiguous()
-        # slot → row: #(inclusive offsets ≤ slot)
-        row = torch.searchsorted(incl, sl, right=True).clamp_max(R - 1)
-        valid = sl < incl[:, -1:]
-        gidx = (torch.gather(start, 1, row)
-                + (sl - torch.gather(incl - cnt, 1, row)))
-        out[s:s + g] = torch.where(valid, gidx, cells.n_points).to(torch.int32)
-    return out
+    ibz = ids // (nby * nbx)
+    iby = (ids // nbx) % nby
+    ibx = ids % nbx
+    lo = torch.stack([x_ax[ibx * bx], y_ax[iby * by], z_ax[ibz * bz]], dim=1)
+    return _compact_rows(cells, lo, margin, mc, C)
 
 
 def _build_pts8_t(points_sorted: torch.Tensor,

@@ -1,14 +1,16 @@
-"""Block-centric kNN evaluation over regular grids: host setup, repair and
-the entry point.
+"""Block-centric kNN evaluation over regular grids and scattered queries:
+host setup, repair, the grid entry point and the scatter-block path.
 
-Counterpart of ``ptv_interpolation_tpu/ops/grid_knn.py``. This slice ports
-the setup the fused path shares (cell list, margin, candidate-region
+Counterpart of ``ptv_interpolation_tpu/ops/grid_knn.py``. Ported: the
+setup the fused path shares (cell list, margin, candidate-region
 dimensions, row capacity, padded axes, cell-sorted values), the repair of
-uncovered nodes, and the entry point routed to the fused kernel
-(``ops/fused_grid_knn.py``). The streaming one-phase path
-(``_grid_block_weighted_sum``), its subset and cell-list repair stages,
-the ``backend='pallas'`` kernel and ``grid_knn_apply`` are not ported yet:
-the routes that need them raise ``NotImplementedError``.
+uncovered nodes, the grid entry point routed to the fused kernel
+(``ops/fused_grid_knn.py``), and the scatter-block kNN over arbitrary
+query points (``scatter_knn_apply``) with exact ``torch.topk`` selection.
+The streaming one-phase grid path (``_grid_block_weighted_sum``), its
+subset and cell-list repair stages, the ``backend='pallas'`` kernel,
+``grid_knn_apply`` and ``approx_min_k`` selection are not ported yet: the
+routes that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
                                                        build_cell_list)
 
 _ROW_PAD = 1024   # sentinel rows after the sorted arrays bound a row's length
+_BIG = 3.4e38     # sentinel squared distance of an empty candidate slot
+_SCATTER_ELEMS = 1 << 24   # bound on (blocks × b_cap × C) distance panels
 
 
 def _block_counts(n: int, b: int) -> int:
@@ -234,3 +238,167 @@ def grid_weighted_interpolate(points, values, grid: Grid, k: int,
     return fused_grid_weighted_interpolate(
         points, values, grid, k, mode=mode, power=power, block=block,
         margin_factor=margin_factor, skip_mask=skip_mask, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Scatter-block variant: arbitrary query points grouped into spatial blocks
+# ---------------------------------------------------------------------------
+
+def _scatter_block_eval(cells: CellList, values_sorted: torch.Tensor,
+                        queries_padded: torch.Tensor, q_table: torch.Tensor,
+                        block_origins: torch.Tensor, margin: float, k: int,
+                        mc: Tuple[int, int, int], row_len: int,
+                        out_dim: int, consume_fn: Callable) -> torch.Tensor:
+    """Exact kNN of queries pre-grouped into spatial blocks (``q_table``:
+    (n_blocks, b_cap) indices into ``queries_padded``, whose last row is
+    a far sentinel) against each block's candidate region of ``mcz·mcy``
+    CSR rows of at most ``row_len`` points. Returns (n_blocks·b_cap,
+    out_dim): ``consume_fn(sq, None, n_val, n_ok, q)`` of the k nearest,
+    ascending, per query.
+
+    A block's candidates are its compacted CSR rows
+    (``fused_grid_knn._compact_rows`` at width mcz·mcy·row_len): the
+    valid ones come in the JAX package's slot order (row by row, lane
+    ascending), empty slots get d² = 3.4e38. Selection is ``torch.topk``,
+    then ties ordered by slot as ``lax.top_k`` orders them, so that
+    coincident points give the same neighbour order. Blocks are evaluated
+    in chunks whose (blocks, b_cap, C) panel stays bounded."""
+    from ptv_interpolation_tpu_torch.ops.fused_grid_knn import _compact_rows
+    n_blocks, b_cap = q_table.shape
+    C = mc[0] * mc[1] * row_len
+    kk = min(k, C)
+    outs = []
+    group = max(1, _SCATTER_ELEMS // (b_cap * C))
+    for s in range(0, n_blocks, group):
+        G = _compact_rows(cells, block_origins[s:s + group], margin, mc,
+                          C).long()                           # (g, C)
+        valid = G < cells.n_points
+        cand = cells.points_sorted[G]                         # (g, C, 3)
+        q = queries_padded[q_table[s:s + group]]              # (g, b, 3)
+        d = q[:, :, None, 0] - cand[:, None, :, 0]
+        d2 = d * d
+        d = q[:, :, None, 1] - cand[:, None, :, 1]
+        d2 = d2 + d * d
+        d = q[:, :, None, 2] - cand[:, None, :, 2]
+        d2 = d2 + d * d                                       # (g, b, C)
+        del d
+        d2 = torch.where(valid[:, None, :], d2, _BIG)
+        sq, args = torch.topk(d2, kk, dim=-1, largest=False)
+        del d2
+        args, perm = torch.sort(args, dim=-1)
+        sq, perm2 = torch.sort(torch.gather(sq, -1, perm), dim=-1,
+                               stable=True)
+        args = torch.gather(args, -1, perm2)
+        rows = torch.gather(G, 1, args.reshape(args.shape[0], -1))
+        n_val = values_sorted[rows].reshape(args.shape + (-1,))
+        n_ok = (torch.gather(valid, 1, args.reshape(args.shape[0], -1))
+                .reshape(args.shape) & (sq < _BIG))
+        g, b = args.shape[:2]
+        outs.append(consume_fn(sq.reshape(g * b, kk), None,
+                               n_val.reshape(g * b, kk, -1),
+                               n_ok.reshape(g * b, kk),
+                               q.reshape(g * b, 3)))
+    return torch.cat(outs).reshape(n_blocks * b_cap, out_dim)
+
+
+def scatter_knn_apply(points, values, queries, k: int, consume_fn: Callable,
+                      out_dim: int, cell_size: float | None = None,
+                      margin_factor: float = 1.45, exact_topk: bool = False,
+                      recall_target: float | None = None,
+                      device="cuda") -> np.ndarray:
+    """Block-centric kNN over *arbitrary* query points on ``device``:
+    queries are bucketed into margin-sized spatial blocks on the host,
+    and each block shares one candidate fetch. This is the at-scale path
+    for point-cloud self-queries (the kNN-MAD filter's exact re-decide).
+    Returns (Q, out_dim) numpy in query order.
+
+    Selection is always exact: ``exact_topk`` is accepted for the JAX
+    package's signature, and ``recall_target`` (its ``approx_min_k``
+    mode) raises ``NotImplementedError``."""
+    del exact_topk                       # every selection here is exact
+    if recall_target is not None:
+        raise NotImplementedError(
+            "approx_min_k selection (recall_target) has no PyTorch "
+            "counterpart and is not ported; the exact selection serves")
+    dev = resolve_device(device)
+    pts = np.asarray(points, np.float32)
+    vals = np.asarray(values, np.float32)
+    qrs = np.asarray(queries, np.float32)
+    n = pts.shape[0]
+
+    lo = pts.min(axis=0)
+    hi = pts.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-12)
+    density = n / float(np.prod(extent))
+    r_k = (3.0 * k / (4.0 * math.pi * density)) ** (1.0 / 3.0)
+    if cell_size is None:
+        cell_size = max(r_k * margin_factor / 2.0, 1e-6)
+    pts_dev = torch.as_tensor(pts, device=dev)
+    cells = build_cell_list(pts_dev, cell_size=cell_size, device=dev)
+    margin = r_k * margin_factor
+
+    # block lattice over the query bbox, edge ≈ 2·margin
+    block_edge = 2.0 * margin
+
+    # clustered-cloud refinement: shrink cells until the candidate-row
+    # capacity fits the 1024-row sentinel padding (capacity ~ cell_size²)
+    for _ in range(6):
+        mc_x = int(math.ceil((block_edge + 2 * margin) / cell_size)) + 1
+        row_len = _row_capacity(cells, mc_x)
+        if row_len <= _ROW_PAD:
+            break
+        cell_size *= min(math.sqrt(float(_ROW_PAD) / row_len) * 0.9, 0.7)
+        if cell_size < 1e-9:
+            break
+        cells = build_cell_list(pts_dev, cell_size=cell_size, device=dev)
+    else:
+        row_len = _row_capacity(
+            cells, int(math.ceil((block_edge + 2 * margin) / cell_size)) + 1)
+    if row_len > _ROW_PAD:
+        raise RowCapacityError(
+            f"cell row capacity {row_len} exceeds the sorted-array padding "
+            f"at every cell resolution tried — cloud too clustered for the "
+            f"scatter-block kernel; use the generic kNN path")
+    q_lo = qrs.min(axis=0)
+    dims = np.maximum(np.ceil((qrs.max(axis=0) - q_lo) / block_edge
+                              ).astype(int), 1)
+    bidx = np.clip(((qrs - q_lo) / block_edge).astype(np.int64), 0, dims - 1)
+    bid = (bidx[:, 2] * dims[1] + bidx[:, 1]) * dims[0] + bidx[:, 0]
+    order = np.argsort(bid, kind="stable")
+    sorted_bid = bid[order]
+    # occupied blocks only
+    uniq, inv_start = np.unique(sorted_bid, return_index=True)
+    counts = np.diff(np.append(inv_start, len(sorted_bid)))
+    b_cap = int(counts.max())
+    n_blocks = len(uniq)
+    q_table = np.full((n_blocks, b_cap), len(qrs), np.int64)
+    rank = np.arange(len(sorted_bid)) - np.repeat(inv_start, counts)
+    q_table[np.repeat(np.arange(n_blocks), counts), rank] = order
+    # physical origin (x, y, z) of each occupied block, rounded to f32 as
+    # the JAX package hands it to the device
+    uz = uniq // (dims[1] * dims[0])
+    uy = (uniq // dims[0]) % dims[1]
+    ux = uniq % dims[0]
+    block_origins = (q_lo[None, :]
+                     + np.stack([ux, uy, uz], axis=-1) * block_edge)
+
+    # static candidate-region dims for a block of edge block_edge + 2·margin
+    mc = tuple(int(math.ceil((block_edge + 2 * margin) / cell_size)) + 1
+               for _ in range(3))
+    row_len = _row_capacity(cells, mc[2])
+
+    queries_padded = torch.as_tensor(np.concatenate(
+        [qrs, np.full((1, 3), 1e19, np.float32)]), device=dev)
+    values_sorted = _sort_values(torch.as_tensor(vals, device=dev),
+                                 cells.order)
+    out = _scatter_block_eval(
+        cells, values_sorted, queries_padded,
+        torch.as_tensor(q_table, device=dev),
+        torch.as_tensor(block_origins.astype(np.float32), device=dev),
+        margin, k, mc, row_len, out_dim, consume_fn)
+    # unscatter: out rows follow q_table order
+    result = np.empty((len(qrs), out_dim), np.float32)
+    flat_idx = q_table.reshape(-1)
+    valid = flat_idx < len(qrs)
+    result[flat_idx[valid]] = out.cpu().numpy()[valid]
+    return result

@@ -49,8 +49,9 @@ def test_resolve_device_policy():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running the slice end to end leaves every
-    ``jax`` module out of ``sys.modules``."""
+    """Importing the port and running its slices end to end (the grid
+    entry points and the pipeline) leaves every ``jax`` module out of
+    ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -69,6 +70,17 @@ def test_port_never_imports_jax():
         b = idw_grid_interpolate(pts, vals, grid, k=8, block=(2, 4, 8),
                                  device="cpu")
         assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+        from ptv_interpolation_tpu_torch.io import PointCloud
+        from ptv_interpolation_tpu_torch.pipeline import (PipelineConfig,
+                                                          run_pipeline)
+        fluid = np.ones((12, 12, 12), bool)
+        fluid[4:8, 4:8, 4:8] = False
+        res = run_pipeline(
+            PipelineConfig(method="idw", idw_neighbors=8, filter_outliers=True,
+                           filter_neighbors=10, boundary_particles=True,
+                           verbose=False),
+            cloud=PointCloud(pts, vals), mask_raw=fluid, device="cpu")
+        assert np.isfinite(res.u).all() and (res.u[~res.mask] == 0).all()
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
         print("JAX_MODULES", loaded)
@@ -80,3 +92,58 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "JAX_MODULES []" in res.stdout
+
+
+def _mask(shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.random(shape) > 0.7
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+@pytest.mark.parametrize("op", ["dilation", "erosion"])
+def test_binary_morphology_matches_jax_and_scipy(op, iterations):
+    import scipy.ndimage as ndi
+    from ptv_interpolation_tpu import grid as jg
+    from ptv_interpolation_tpu_torch import grid as tg
+    m = _mask((9, 12, 7), iterations)
+    if op == "erosion":
+        m = ~m
+    got = getattr(tg, f"binary_{op}6")(m, iterations, device="cpu")
+    assert got.dtype == torch.bool
+    want = np.asarray(getattr(jg, f"binary_{op}6")(m, iterations))
+    np.testing.assert_array_equal(got.numpy(), want)
+    scipy_op = getattr(ndi, f"binary_{op}")
+    np.testing.assert_array_equal(
+        got.numpy(), scipy_op(m, ndi.generate_binary_structure(3, 1),
+                              iterations=iterations))
+
+
+@pytest.mark.parametrize("shape,bounds,res,bounds_raw", [
+    ((30, 24, 20), ((0, 20), (0, 24), (0, 30)), (10, 12, 15), None),
+    ((31, 25, 19), ((0, 19), (0, 25), (0, 31)), (7, 13, 16), None),
+    ((20, 20, 20), ((2, 18), (0, 20), (5, 20)), (8, 10, 7),
+     ((0, 20), (0, 20), (0, 20))),
+])
+def test_sample_mask_on_grid_matches_jax(shape, bounds, res, bounds_raw):
+    from ptv_interpolation_tpu.grid import sample_mask_on_grid as jax_sample
+    from ptv_interpolation_tpu_torch.grid import sample_mask_on_grid
+    m = _mask(shape, 5)
+    want = jax_sample(m, jax_create_grid(bounds, res), bounds_raw)
+    got = sample_mask_on_grid(m, create_grid(bounds, res), bounds_raw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("step,thickness", [(1, 1), (3, 2), (50, 2)])
+def test_extract_boundary_particles_matches_jax(step, thickness):
+    """The same coordinates in the same (np.where) order."""
+    from ptv_interpolation_tpu.grid import (
+        extract_boundary_particles as jax_extract)
+    from ptv_interpolation_tpu_torch.grid import extract_boundary_particles
+    fluid = _mask((18, 21, 16), 8)
+    bounds = ((0, 16), (0, 21), (3, 21))
+    want = jax_extract(fluid, bounds, sampling_step=step, thickness=thickness)
+    got = extract_boundary_particles(fluid, bounds, sampling_step=step,
+                                     thickness=thickness, device="cpu")
+    assert len(got[0]) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -1,0 +1,204 @@
+"""The port's ``run_pipeline`` against the JAX package's on the sphere-pack
+dataset of ``tests/test_pipeline_e2e.py``: sibson, outlier filter on,
+boundary particles, no cleaning."""
+
+import functools
+import io
+import os
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from ptv_interpolation_tpu.datasets import sphere_pack
+from ptv_interpolation_tpu.io import load_velocity_field as jax_load_field
+from ptv_interpolation_tpu.io.csvio import load_ptv_data as jax_load_csv
+from ptv_interpolation_tpu.io.tiff import read_tiff as jax_read_tiff
+from ptv_interpolation_tpu.pipeline import PipelineConfig as JaxConfig
+from ptv_interpolation_tpu.pipeline import run_pipeline as jax_run_pipeline
+from ptv_interpolation_tpu_torch import filtering as tf
+from ptv_interpolation_tpu_torch.interpolate import dispatch as td
+from ptv_interpolation_tpu_torch.io.csvio import save_ptv_data
+from ptv_interpolation_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from ptv_interpolation_tpu_torch.utils import StageTimings, profiler_trace
+
+torch.set_num_threads(2)
+
+# f32 sums in another order (brute-force kNN chunks, weight normalisation)
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    """The sphere pack (48³, 4000 tracks, solid = 1 in the mask), with
+    planted outliers: 6 tracks ×20 for the speed threshold, 4 ×8 for the
+    kNN-MAD filter. (The pack's speeds are uniform, so MAD = 0 and every
+    neighbour of an outlier sits inside the fused kernel's uncertainty
+    band; 4 outliers keep that under the 5% the exact re-decide takes.)"""
+    d = tmp_path_factory.mktemp("torch_sphere_pack")
+    csv = str(d / "pts.csv")
+    tif = str(d / "mask.tif")
+    sphere_pack.generate(n_points=4000, size=48, filename=csv, maskname=tif,
+                         voxel_units=True)
+    cloud = jax_load_csv(csv)
+    rng = np.random.default_rng(3)
+    idx = rng.choice(len(cloud), 10, replace=False)
+    vals = cloud.values.copy()
+    vals[idx[:6]] *= 20.0
+    vals[idx[6:]] *= 8.0
+    from ptv_interpolation_tpu_torch.io.csvio import PointCloud
+    save_ptv_data(csv, PointCloud(cloud.points, vals))
+    return d, csv, tif
+
+
+def _config(cls, csv, tif, **kw):
+    return cls(input=csv, mask=tif, invert_mask=True, method="sibson",
+               sibson_neighbors=15, filter_outliers=True,
+               boundary_particles=True, boundary_sampling=10, verbose=True,
+               **kw)
+
+
+def _run(fn, config, **kw):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(config, **kw)
+    counts = [line.strip() for line in out.getvalue().splitlines()
+              if any(w in line for w in ("Removed", "Added", "Points:",
+                                         "Filtering radius"))]
+    return result, counts
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_result(csv, tif):
+    return _run(jax_run_pipeline, _config(JaxConfig, csv, tif))
+
+
+def test_run_pipeline_matches_jax(dataset):
+    """Identical filtered and boundary counts (the verbose prints), mask,
+    and u, v, w within rtol 1e-5 / atol 1e-6; solid nodes exactly 0; the
+    NPZ and TIFF load with the JAX package's loaders to the same arrays."""
+    d, csv, tif = dataset
+    npz, out_tif = str(d / "port.npz"), str(d / "port.tif")
+    want, want_counts = _jax_result(csv, tif)
+    got, got_counts = _run(run_pipeline, _config(
+        PipelineConfig, csv, tif, output_npz=npz, output_tif=out_tif),
+        device="cpu")
+    assert got_counts == want_counts
+    assert any("Threshold Filter: Removed 6" in c for c in got_counts)
+    assert any("Outlier Filter: Removed" in c for c in got_counts)
+    assert any("Added" in c for c in got_counts)
+    assert got.u.shape == (48, 48, 48)
+    np.testing.assert_array_equal(got.mask, want.mask)
+    for f in "xyz":
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in "uvw":
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=RTOL, atol=ATOL)
+    solid = ~got.mask
+    for f in "uvw":
+        assert np.all(getattr(got, f)[solid] == 0.0)
+    assert not got.has_dual
+
+    back = jax_load_field(npz)
+    for f in ("x", "y", "z", "u", "v", "w", "mask"):
+        np.testing.assert_array_equal(getattr(back, f), getattr(got, f))
+    stack = jax_read_tiff(out_tif)
+    assert stack.shape == (48, 3, 48, 48)
+    np.testing.assert_array_equal(stack[:, 0], got.u)
+    np.testing.assert_array_equal(stack[:, 2], got.w)
+
+
+def test_fused_routes_decide_as_the_exact_routes(dataset, monkeypatch):
+    """With the port's size switches lowered, the filter takes the fused
+    MAD route and the interpolation the fused grid route on the same
+    data. Decisions equal the JAX package's exact (brute-force) routes.
+
+    The field is held against the JAX package's grid route (forced with
+    ``use_grid_kernel='always'``), within atol 1e-5: the boundary
+    particles sit on the voxel lattice, so many grid nodes have ties at
+    the k-th distance, and a τ-threshold route takes every tied candidate
+    where exact top-k takes k of them."""
+    import ptv_interpolation_tpu.pipeline as jax_pipeline
+    d, csv, tif = dataset
+    monkeypatch.setattr(tf, "_SCATTER_MIN_POINTS", 1000)
+    monkeypatch.setattr(td, "_GRID_FASTPATH_MIN_WORK", 1)
+    monkeypatch.setattr(td, "_GRID_FASTPATH_MIN_POINTS", 1000)
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn, fused_mad
+    calls = {"mad": 0, "grid": 0}
+    mad_plain, grid_plain = (fused_mad._mad_eval_plain,
+                             fused_grid_knn._fused_eval_plain)
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fused_mad, "_mad_eval_plain", count("mad", mad_plain))
+    monkeypatch.setattr(fused_grid_knn, "_fused_eval_plain",
+                        count("grid", grid_plain))
+    got, got_counts = _run(run_pipeline, _config(PipelineConfig, csv, tif),
+                           device="cpu")
+    assert calls["mad"] >= 1 and calls["grid"] >= 1
+    assert tf.knn_mad_mask_scatter.last_branch[0] == "exact_scatter"
+
+    _, exact_counts = _jax_result(csv, tif)
+    # every count; the radius is the bisection's (k+1)-th distance there
+    assert ([c for c in got_counts if "radius" not in c]
+            == [c for c in exact_counts if "radius" not in c])
+    assert any("Outlier Filter: Removed" in c for c in got_counts)
+    monkeypatch.setattr(jax_pipeline, "interpolate_field", functools.partial(
+        jax_pipeline.interpolate_field, use_grid_kernel="always"))
+    want, want_counts = _run(jax_run_pipeline,
+                             _config(JaxConfig, csv, tif))
+    np.testing.assert_array_equal(got.mask, want.mask)
+    for f in "uvw":
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(divergence_free=True), "item 8"),
+    (dict(method="linear"), "not ported"),
+    (dict(method="rbf"), "not ported"),
+])
+def test_unported_stages_raise(dataset, kw, match):
+    d, csv, tif = dataset
+    config = _config(PipelineConfig, csv, tif, **{
+        k: v for k, v in kw.items() if k != "method"})
+    if "method" in kw:
+        config.method = kw["method"]
+    with pytest.raises(NotImplementedError, match=match):
+        run_pipeline(config, device="cpu")
+
+
+def test_cuda_without_a_card_raises(dataset):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-card behaviour cannot show")
+    d, csv, tif = dataset
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        run_pipeline(_config(PipelineConfig, csv, tif))
+
+
+def test_stage_names_and_profiler_trace(dataset, tmp_path):
+    """The stage timings carry the JAX package's stage names; a profile
+    directory receives a Chrome trace."""
+    d, csv, tif = dataset
+    cloud = jax_load_csv(csv)
+    from ptv_interpolation_tpu_torch.io import PointCloud
+    timings = StageTimings()
+    rng = np.random.default_rng(0)
+    sub = rng.choice(len(cloud), 1500, replace=False)
+    config = _config(PipelineConfig, csv, tif, downscale=4.0)
+    config.verbose = False
+    run_pipeline(config, cloud=PointCloud(cloud.points[sub],
+                                          cloud.values[sub]),
+                 timings=timings, profile_dir=str(tmp_path / "prof"),
+                 device="cpu")
+    assert list(timings.stages) == ["load_mask", "prepare_domain",
+                                    "filter_outliers", "sample_mask",
+                                    "boundary_particles", "interpolate"]
+    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with profiler_trace(None):
+        pass
