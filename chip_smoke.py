@@ -8,7 +8,7 @@ and the script exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off;
-2. build: both kernels of ``ptv_interpolation_tpu_torch/ops/csrc/`` with
+2. build: the three kernels of ``ptv_interpolation_tpu_torch/ops/csrc/`` with
    ``nvcc``, one compiler per source, all started together (timed, counted
    as set-up);
 3. the grid kernel against its plain PyTorch version on the headline problem
@@ -28,12 +28,29 @@ and the script exits non-zero:
    shape (a 486×336×322 raw mask, 650 000 tracks, downscale 2 → a
    161×168×243 grid; MAD filter k=30, boundary particles, sibson k=50) —
    one warm-up run through CSV/TIFF/NPZ files and 3 timed runs on arrays,
-   with both kernels' launch counts, the filter branch, stage walls, peak
-   memory, and checks of the decisions (f64 cKDTree), the field (f64
-   scipy sibson) and the solid (exactly 0).
+   with both kernels' launch counts, the filter branch, the repair ladder's
+   stages, stage walls, peak memory, and checks of the decisions (f64
+   cKDTree), the field (f64 scipy sibson) and the solid (exactly 0);
+7. the one-phase kernel of ``backend='pallas'`` against its plain version
+   on the headline problem (block (2,8,8), 14 halvings): a subset of
+   blocks with the corners, edges, blocks whose windows leave the cell
+   grid and random interior ones, sibson and IDW at p = 2 and 3 (τ²
+   bit-equal); timed on one fixed slice of blocks (kernel and plain
+   version), and the kernel alone on every block;
+8. the route: ``sibson_grid_interpolate(..., backend="pallas",
+   device="cuda")`` on the headline problem — one warm-up and 3 timed
+   runs, launches, peak memory, a stage breakdown, and relative L2 against
+   the f64 scipy reference on 20k interior nodes (reported, not gated: 14
+   halvings leave τ coarse);
+9. the streaming path (``backend="xla"``) and the exact top-k gather path
+   (``exact_topk=True``) at 125 000 points → 128³ (the headline's density),
+   timed once each, with the repair ladder's stages and relative L2 against
+   f64 scipy on 20k interior nodes.
 
-The second-to-last line of standard output is the kernels' JSON record,
-the last line ``{"ok": true, "device": {...}}``.
+The second-to-last line of standard output is the kernels' JSON record
+(``ms`` and ``plain_ms`` are the full panel for the first two kernels and
+phase 7's fixed slice for the third), the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 import json
@@ -71,14 +88,15 @@ def phase_environment(torch):
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from ptv_interpolation_tpu_torch.ops import cuda_build, fused_grid_knn
-    from ptv_interpolation_tpu_torch.ops import fused_mad
+    from ptv_interpolation_tpu_torch.ops import fused_mad, pallas_grid_knn
     log("== 2. build")
-    names = ("fused_grid_knn", "fused_mad")
+    names = ("fused_grid_knn", "fused_mad", "pallas_grid_knn")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(cuda_build.build_library, names))
     fused_grid_knn._kernel_lib()
     fused_mad._kernel_lib()
+    pallas_grid_knn._kernel_lib()
     secs = time.perf_counter() - t0
     log(f"{', '.join(n + '.cu' for n in names)} built and loaded in "
         f"{secs:.2f} s")
@@ -217,7 +235,8 @@ def phase_main_path(torch, pts, vals, grid, k):
     wall = float(np.median(walls))
     log(f"  median wall {wall:.4f} s; peak device memory "
         f"{peak / 2**30:.3f} GiB; kernel launches: main pass "
-        f"{main_launches}, repair {counts['repair']} (3 runs)")
+        f"{main_launches}, repair {counts['repair']} (3 runs); repair "
+        f"ladder {gk.repair_empty_nodes.last_stages}")
     if main_launches <= 0 or counts["repair"] <= 0:
         raise AssertionError("the main path did not launch the kernel in "
                              "both the main pass and repair")
@@ -472,6 +491,7 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
     from ptv_interpolation_tpu_torch.io.tiff import write_tiff
     from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
     from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
     from ptv_interpolation_tpu_torch.utils import StageTimings
     log("== 6. pipeline: run_pipeline on cuda at the production shape")
     config = pipeline_config()
@@ -549,6 +569,8 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
         + f"); peak device memory {peak / 2**30:.3f} GiB")
     log(f"  filter branch for the uncovered points: {branch[0]}, "
         f"{branch[1]} points")
+    log(f"  repair ladder, nodes served by stage: "
+        f"{gk.repair_empty_nodes.last_stages}")
 
     # decisions against an independent f64 reference on the filter's input
     cloud, rows = _filter_input(fluid, pts, vals)
@@ -600,6 +622,213 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
     return (sum(n for n, _ in launches), sum(n for _, n in launches))
 
 
+# ---------------------------------------------------------------------------
+# The one-phase kernel of backend='pallas' and the other grid routes
+# (phases 7-9)
+# ---------------------------------------------------------------------------
+
+PALLAS_BLOCK = (2, 8, 8)
+PALLAS_ITERS = 14
+SLICE_BLOCKS = 1024                # the fixed slice both versions are timed on
+
+
+def _compare_pallas(torch, got, want, what):
+    """τ² (column 3) bit-equal; the values within RTOL/ATOL; nodes whose
+    windows hold no point exactly 0 in both."""
+    if not torch.equal(got[..., 3], want[..., 3]):
+        n = int((got[..., 3] != want[..., 3]).sum())
+        raise AssertionError(f"{what}: τ² differs at {n} nodes")
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        bad = ~torch.isclose(got, want, rtol=RTOL, atol=ATOL)
+        raise AssertionError(f"{what}: {int(bad.sum())} values outside "
+                             f"rtol {RTOL} atol {ATOL}")
+    empty = (want[..., :3] == 0).all(dim=-1)
+    if not bool((got[..., :3][empty] == 0).all()):
+        raise AssertionError(f"{what}: empty windows are not exactly 0")
+    err = float((got - want).abs().max())
+    log(f"  {what}: τ² bit-equal, {int(empty.sum())} nodes with empty "
+        f"windows, max |kernel - plain| = {err:.3e}")
+    return err
+
+
+def phase_pallas_kernel(torch, pts, vals, grid, k):
+    from ptv_interpolation_tpu_torch.ops import pallas_grid_knn as pg
+    log("== 7. one-phase kernel (backend='pallas') against its plain version")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    starts, axes, store, dims, L = pg._pallas_setup(pts, vals, grid, k,
+                                                    PALLAS_BLOCK, 1.45, dev)
+    torch.cuda.synchronize()
+    n_blocks, R = starts.shape
+    store_w = store.shape[1]
+    log(f"  headline: {n_blocks} blocks of {int(np.prod(PALLAS_BLOCK))} "
+        f"nodes, R = {R} windows × L = {L} (C = {R * L}), store (8, "
+        f"{store_w}); setup {time.perf_counter() - t0:.3f} s")
+
+    # corners, edges, blocks with windows outside the cell grid, interior
+    nbz, nby, nbx = dims
+    corners = [(z * nby + y) * nbx + x for z in (0, nbz - 1)
+               for y in (0, nby - 1) for x in (0, nbx - 1)]
+    edges = ([x for x in range(nbx)]
+             + [(z * nby + nby - 1) * nbx for z in range(nbz)]
+             + [((nbz - 1) * nby + y) * nbx + nbx - 1 for y in range(nby)])
+    outside = torch.nonzero((starts == store_w - L).any(dim=1)).squeeze(1)
+    outside = outside.cpu().numpy()
+    rng = np.random.default_rng(7)
+    ids = np.unique(np.concatenate([corners, edges, outside[:100],
+                                    outside[-100:],
+                                    rng.integers(0, n_blocks, 300)]))
+    ids_t = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    sub = (starts[ids_t.long()].contiguous(), ids_t, axes, store,
+           PALLAS_BLOCK, dims, L, k)
+    errs = []
+    for mode, power in (("sibson", 2.0), ("idw", 2.0), ("idw", 3.0)):
+        args = sub + (mode, power, PALLAS_ITERS)
+        got, want = pg._pallas_eval(*args), pg._pallas_eval_plain(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare_pallas(
+            torch, got, want, f"{mode} p={power:g}, {len(ids)} blocks incl. "
+            f"corners/edges/{len(outside)} outside the cell grid"))
+
+    # one fixed slice of blocks for both versions, then every block
+    s0 = n_blocks // 2
+    sl = torch.arange(s0, s0 + SLICE_BLOCKS, dtype=torch.int32, device=dev)
+    args = (starts[s0:s0 + SLICE_BLOCKS].contiguous(), sl, axes, store,
+            PALLAS_BLOCK, dims, L, k, "sibson", 2.0, PALLAS_ITERS)
+    ms = _cuda_ms(torch, lambda: pg._pallas_eval(*args), reps=5)
+    plain_ms = _cuda_ms(torch, lambda: pg._pallas_eval_plain(*args), reps=1)
+    got, want = pg._pallas_eval(*args), pg._pallas_eval_plain(*args)
+    torch.cuda.synchronize()
+    errs.append(_compare_pallas(torch, got, want,
+                                f"sibson, slice of {SLICE_BLOCKS} blocks"))
+    log(f"  slice of {SLICE_BLOCKS} blocks, sibson: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
+    all_ids = torch.arange(n_blocks, dtype=torch.int32, device=dev)
+    full = (starts, all_ids, axes, store, PALLAS_BLOCK, dims, L, k,
+            "sibson", 2.0, PALLAS_ITERS)
+    full_ms = _cuda_ms(torch, lambda: pg._pallas_eval(*full), reps=2)
+    log(f"  every block ({n_blocks}), sibson: kernel {full_ms:.3f} ms")
+    return max(errs), ms, plain_ms
+
+
+def _interior_l2(torch, out, pts, vals, grid, n_nodes=20_000, seed=1):
+    from bench import scipy_reference_values
+    n = grid.shape[0]
+    rng = np.random.default_rng(seed)
+    iz, iy, ix = rng.integers(1, n - 1, (n_nodes, 3)).T
+    queries = np.stack([grid.x[ix], grid.y[iy], grid.z[iz]],
+                       axis=-1).astype(np.float32)
+    ref = scipy_reference_values(pts, vals, queries)
+    ours = out[torch.as_tensor(iz), torch.as_tensor(iy),
+               torch.as_tensor(ix)].cpu().numpy().astype(np.float64)
+    return float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
+
+
+def phase_pallas_path(torch, pts, vals, grid, k):
+    from ptv_interpolation_tpu_torch.interpolate import (
+        sibson_grid_interpolate)
+    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
+    from ptv_interpolation_tpu_torch.ops import pallas_grid_knn as pg
+    log("== 8. route: sibson_grid_interpolate(backend='pallas') on cuda")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sibson_grid_interpolate(pts, vals, grid, k=k, backend="pallas",
+                                      device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, first = run()
+    log(f"  warm-up run: {first:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    pg._pallas_eval.launches = 0
+    walls = []
+    for i in range(3):
+        out, wall = run()
+        walls.append(wall)
+        log(f"  run {i + 1}: {wall:.4f} s")
+    launches = pg._pallas_eval.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  median wall {float(np.median(walls)):.4f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches} (3 runs)")
+    if launches <= 0:
+        raise AssertionError("the pallas route did not launch its kernel")
+    if tuple(out.shape) != grid.shape + (vals.shape[1],):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite values in the interpolated field")
+
+    # the same route stage by stage, synchronised per stage
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return res
+
+    starts, axes, store, dims, L = stage("setup", lambda: pg._pallas_setup(
+        pts, vals, grid, k, PALLAS_BLOCK, 1.45, "cuda"))
+    ids = torch.arange(starts.shape[0], dtype=torch.int32, device="cuda")
+    raw = stage("kernel", lambda: pg._pallas_eval(
+        starts, ids, axes, store, PALLAS_BLOCK, dims, L, k, "sibson", 2.0,
+        PALLAS_ITERS))
+    field = stage("reassemble", lambda: gk._reassemble_blocks(
+        raw[..., :3], PALLAS_BLOCK, grid.shape))
+    log("  stages (s): " + ", ".join(f"{n} {s:.4f}"
+                                     for n, s in stages.items()))
+    if not torch.equal(field, out):
+        raise AssertionError("the stage-by-stage run differs from the route")
+    l2 = _interior_l2(torch, out, pts, vals, grid)
+    log(f"  relative L2 vs the f64 scipy reference on 20000 interior nodes: "
+        f"{l2:.3e} (reported, not gated: {PALLAS_ITERS} halvings)")
+    return launches
+
+
+SMALL_N, SMALL_POINTS = 128, 125_000
+
+
+def phase_other_routes(torch, k):
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    from ptv_interpolation_tpu_torch.interpolate import (
+        sibson_grid_interpolate)
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
+    log(f"== 9. streaming and exact top-k routes, {SMALL_POINTS} points → "
+        f"{SMALL_N}³")
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, SMALL_N, size=(SMALL_POINTS, 3)).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.05), np.cos(pts[:, 1] * 0.04),
+                     1.0 + 0.1 * np.sin(pts[:, 2] * 0.03)],
+                    axis=-1).astype(np.float32)
+    grid = create_grid(((0, SMALL_N + 1),) * 3, SMALL_N)
+    for name, kw in (("backend='xla'", dict(backend="xla")),
+                     ("exact_topk=True", dict(exact_topk=True))):
+        gk.repair_empty_nodes.last_stages = None
+        launches = fg._fused_eval.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sibson_grid_interpolate(pts, vals, grid, k=k, device="cuda",
+                                      **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: non-finite values")
+        l2 = _interior_l2(torch, out, pts, vals, grid)
+        log(f"  {name}: {wall:.4f} s (first call), repair ladder "
+            f"{gk.repair_empty_nodes.last_stages}, grid-kernel launches "
+            f"{fg._fused_eval.launches - launches}; relative L2 vs f64 "
+            f"scipy on 20000 interior nodes {l2:.3e} (limit "
+            f"{L2_LIMIT:.0e})")
+        if not l2 <= L2_LIMIT:
+            raise AssertionError(f"{name}: relative L2 {l2:.3e} exceeds "
+                                 f"{L2_LIMIT:.0e}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -620,8 +849,16 @@ def main():
     problem = make_pipeline_problem()
     mad_err, mad_ms, mad_plain_ms = phase_mad_kernel(torch, *problem)
     mad_launches, grid_launches = phase_pipeline(torch, *problem)
+    del problem
+    pts, vals = make_problem()
+    pl_err, pl_ms, pl_plain_ms = phase_pallas_kernel(torch, pts, vals, grid,
+                                                     K)
+    pl_launches = phase_pallas_path(torch, pts, vals, grid, K)
+    del pts, vals
+    phase_other_routes(torch, K)
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
-        f"(phase 6); fused_mad {mad_launches} (phase 6)")
+        f"(phase 6); fused_mad {mad_launches} (phase 6); pallas_grid_knn "
+        f"{pl_launches} (phase 8)")
 
     log(json.dumps({"kernels": [{
         "name": "fused_grid_knn",
@@ -641,6 +878,15 @@ def main():
         "max_abs_err": mad_err,
         "ms": mad_ms,
         "plain_ms": mad_plain_ms,
+    }, {
+        "name": "pallas_grid_knn",
+        "route": "cuda",
+        "source": "ptv_interpolation_tpu_torch/ops/csrc/pallas_grid_knn.cu",
+        "replaces": "ptv_interpolation_tpu/ops/pallas_grid_knn.py:51",
+        "launches": pl_launches,
+        "max_abs_err": pl_err,
+        "ms": pl_ms,
+        "plain_ms": pl_plain_ms,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,6 +84,16 @@ class Grid:
     def n_points(self) -> int:
         return self.nx * self.ny * self.nz
 
+    def flat_coords(self, device="cpu") -> torch.Tensor:
+        """All grid points as an (n_points, 3) f32 tensor of (x, y, z)
+        rows on ``device``, in the C order of the (nz, ny, nx) layout."""
+        dev = resolve_device(device)
+        z, y, x = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                   for a in (self.z, self.y, self.x))
+        Z, Y, X = torch.meshgrid(z, y, x, indexing="ij")
+        return torch.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)],
+                           dim=-1)
+
 
 def create_grid(bounds: Bounds, resolution: Resolution) -> Grid:
     """Build a :class:`Grid` from bounds and ``resolution`` — ``(nx, ny,

@@ -16,7 +16,6 @@ nearest, rbf, cubic) raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ptv_interpolation_tpu_torch.device import resolve_device
@@ -96,12 +95,7 @@ def interpolate_field(points, values, grid: Grid, method: str = "linear",
                 skip_mask=skip_mask, tau_mode=tau_mode, device=dev)
         return out[..., 0], out[..., 1], out[..., 2]
 
-    z, y, x = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
-               for a in (grid.z, grid.y, grid.x))
-    Z, Y, X = torch.meshgrid(z, y, x, indexing="ij")
-    queries = torch.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)],
-                          dim=-1)
-    out = interpolate_values(points, values, queries, method=method,
-                             device=dev, **kwargs)
+    out = interpolate_values(points, values, grid.flat_coords(dev),
+                             method=method, device=dev, **kwargs)
     out = out.reshape(grid.shape + (out.shape[-1],))
     return out[..., 0], out[..., 1], out[..., 2]

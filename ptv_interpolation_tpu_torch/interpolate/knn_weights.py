@@ -9,8 +9,10 @@ Counterpart of ``ptv_interpolation_tpu/interpolate/knn_weights.py``:
   shift by ``min d`` cancels under normalisation and keeps the f32 exp from
   underflowing to an all-zero row for queries far from the cloud.
 
-Scattered queries use exact brute-force kNN; grid targets use the fused
-block kernel (``ops/grid_knn.py``).
+Scattered queries use exact brute-force kNN; grid targets use the
+block-centric paths of ``ops/grid_knn.py`` (the fused kernel, the
+one-phase kernel of ``backend='pallas'``, the streaming path, or the
+exact top-k gather path of ``exact_topk=True``).
 """
 
 from __future__ import annotations
@@ -99,6 +101,25 @@ def sibson_interpolate(points, values, queries, k: int = 30,
 # Grid fast paths: block-centric evaluation (ops/grid_knn.py)
 # ---------------------------------------------------------------------------
 
+def _consume(weights: Callable):
+    """``consume(sq, n_pos, n_val, ok, q)`` of ``grid_knn_apply``: the
+    weighted sum of the k neighbours' values, (rows, V)."""
+    def consume(sq, n_pos, n_val, ok, q):
+        d = torch.sqrt(torch.clamp_min(torch.where(ok, sq, 1.0), 0.0))
+        return (weights(d, ok)[..., None] * n_val).sum(dim=1)
+    return consume
+
+
+@functools.lru_cache(maxsize=32)
+def _idw_consume(power: float):
+    return _consume(lambda d, ok: _idw_weights(d, power, ok))
+
+
+@functools.lru_cache(maxsize=1)
+def _sibson_consume():
+    return _consume(_sibson_weights)
+
+
 @functools.lru_cache(maxsize=32)
 def _idw_panel_weights(power: float):
     """IDW panel weight function ``fn(d, mask, sq_topk)``, tagged with
@@ -136,17 +157,30 @@ def _sibson_panel_weights():
     return weight_fn
 
 
+def _gather_route(points, values, grid, k: int, consume, kwargs):
+    """``exact_topk=True``: the exact top-k gather path, which has no
+    repair stage and no τ threshold."""
+    from ptv_interpolation_tpu_torch.ops.grid_knn import grid_knn_apply
+    kwargs.pop("skip_mask", None)
+    kwargs.pop("tau_mode", None)
+    return grid_knn_apply(points, values, grid, k, consume,
+                          out_dim=int(values.shape[1]), exact_topk=True,
+                          needs_positions=False, **kwargs)
+
+
 def idw_grid_interpolate(points, values, grid, k: int = 50,
                          power: float = 2.0, exact_topk: bool = False,
                          **kwargs) -> torch.Tensor:
     """IDW onto a :class:`Grid` via the block-centric τ-threshold kernel;
     returns (nz, ny, nx, C) on ``device`` (a keyword, default 'cuda').
-    ``exact_topk=True`` (the gather-based oracle) is not ported yet."""
+    ``exact_topk=True`` routes through the gather path with exact top-k
+    selection (``grid_knn_apply``, the parity oracle); other keywords go
+    to ``grid_weighted_interpolate`` (``backend``, ``tau_mode``, ...)."""
+    if exact_topk:
+        return _gather_route(points, values, grid, k,
+                             _idw_consume(float(power)), kwargs)
     from ptv_interpolation_tpu_torch.ops.grid_knn import (
         grid_weighted_interpolate)
-    if exact_topk:
-        raise NotImplementedError(
-            "exact_topk=True (grid_knn_apply) is not ported yet")
     return grid_weighted_interpolate(points, values, grid, k,
                                      _idw_panel_weights(float(power)),
                                      mode="idw", power=float(power),
@@ -158,12 +192,13 @@ def sibson_grid_interpolate(points, values, grid, k: int = 30,
                             **kwargs) -> torch.Tensor:
     """Sibson (smoothed IDW) onto a :class:`Grid` via the block-centric
     τ-threshold kernel; returns (nz, ny, nx, C) on ``device`` (a keyword,
-    default 'cuda'). ``exact_topk=True`` is not ported yet."""
+    default 'cuda'). ``exact_topk`` and the other keywords as for
+    :func:`idw_grid_interpolate`."""
+    if exact_topk:
+        return _gather_route(points, values, grid, k, _sibson_consume(),
+                             kwargs)
     from ptv_interpolation_tpu_torch.ops.grid_knn import (
         grid_weighted_interpolate)
-    if exact_topk:
-        raise NotImplementedError(
-            "exact_topk=True (grid_knn_apply) is not ported yet")
     return grid_weighted_interpolate(points, values, grid, k,
                                      _sibson_panel_weights(), mode="sibson",
                                      **kwargs)

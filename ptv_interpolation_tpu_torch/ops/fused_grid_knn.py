@@ -31,6 +31,7 @@ import torch
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.grid import Grid
 from ptv_interpolation_tpu_torch.ops.grid_knn import (_block_counts,
+                                                      _block_rows,
                                                       _host_setup, _pad_axis,
                                                       repair_empty_nodes)
 from ptv_interpolation_tpu_torch.ops.neighbors import CellList, cell_meta_np
@@ -57,31 +58,10 @@ def _compact_chunk(cells: CellList, lo: torch.Tensor, m32: torch.Tensor,
                    mc: Tuple[int, int, int], C: int) -> torch.Tensor:
     """:func:`_compact_rows` for one chunk of blocks; ``m32`` is the
     margin as an f32 scalar tensor."""
-    mcz, mcy, mcx = mc
-    ncx, ncy, ncz = cells.dims
     dev = cells.device
-    R = mcz * mcy
+    R = mc[0] * mc[1]
     g = lo.shape[0]
-    roz = torch.arange(mcz, dtype=torch.int32,
-                       device=dev).repeat_interleave(mcy)
-    roy = torch.arange(mcy, dtype=torch.int32, device=dev).repeat(mcz)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    # f32, in the JAX package's op order: ((lo - margin) - origin) * inv
-    base = torch.floor(((lo - m32) - cells.origin)
-                       * cells.inv_cell).to(torch.int32)           # (g, 3)
-    cz = base[:, 2:3] + roz
-    cy = base[:, 1:2] + roy                                        # (g, R)
-    row_ok = (cz >= 0) & (cz < ncz) & (cy >= 0) & (cy < ncy)
-    x0 = base[:, 0:1].clamp(0, ncx)
-    x1 = (base[:, 0:1] + mcx).clamp(0, ncx)
-    rid = (cz * ncy + cy) * ncx
-    start = torch.where(row_ok,
-                        cells.starts[torch.where(row_ok, rid + x0, zero)],
-                        zero).long()
-    end = torch.where(row_ok,
-                      cells.starts[torch.where(row_ok, rid + x1, zero)],
-                      zero).long()
-    cnt = end - start
+    start, cnt = _block_rows(cells, lo, m32, mc)                   # (g, R)
     incl = torch.cumsum(cnt, dim=1)                                # (g, R)
     sl = torch.arange(C, dtype=torch.int64, device=dev).expand(g, C)
     sl = sl.contiguous()
@@ -490,6 +470,41 @@ def _repair_survey(den: torch.Tensor, skip, block, dims,
     out[1] = blk_bad.sum()
     out[2:2 + ids.shape[0]] = ids.to(torch.int32)
     return out
+
+
+def fused_subset_weighted_sum(cells: CellList, values_sorted, axes,
+                              margin: float, ids_np, k: int,
+                              block: Tuple[int, int, int],
+                              grid_shape: Tuple[int, int, int],
+                              mc: Tuple[int, int, int], mode: str,
+                              power: float, V: int, max_panel: int = 8192):
+    """The fused kernel over only the blocks ``ids_np`` (host int array)
+    at the given, typically widened, ``margin``: returns (n_sel, B, V+1)
+    in ``ids_np`` order, nodes in local (tz, ty, tx) order, with the
+    coverage-sentinel ``den`` in the last column — or None when the
+    compacted panel would exceed ``max_panel`` (the caller then takes the
+    streaming subset evaluator). The repair ladder's subset stage."""
+    bz, by, bx = block
+    C = _panel_width(_block_total_capacity(cells, axes, margin, block,
+                                           grid_shape, mc, ids=ids_np))
+    if C > max_panel:
+        return None
+    nz, ny, nx = grid_shape
+    dims = (_block_counts(nz, bz), _block_counts(ny, by),
+            _block_counts(nx, bx))
+    sz = _pick_sz(bz, by, bx)
+    n_sub = bz // sz
+    ids = torch.as_tensor(ids_np, dtype=torch.int64, device=cells.device)
+    cand = _compact_gather(cells, values_sorted, axes, margin, block,
+                           grid_shape, mc, C, ids=ids)
+    qx, qy, qz = _build_queries(axes, block, dims, sz, ids=ids,
+                                device=cells.device)
+    # margin² formed in f64 and rounded once, as the JAX package forms it
+    out = _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
+                      sz, int(k), V, C, mode, float(power))
+    out = out.reshape(len(ids_np), n_sub, 8, sz, by * bx)
+    out = out.permute(0, 1, 3, 4, 2).reshape(len(ids_np), bz * by * bx, 8)
+    return out[:, :, :V + 1]
 
 
 def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,

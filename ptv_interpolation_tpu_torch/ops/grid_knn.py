@@ -1,16 +1,33 @@
 """Block-centric kNN evaluation over regular grids and scattered queries:
-host setup, repair, the grid entry point and the scatter-block path.
+host setup, the streaming grid path, repair, the grid entry points and
+the scatter-block path.
 
-Counterpart of ``ptv_interpolation_tpu/ops/grid_knn.py``. Ported: the
-setup the fused path shares (cell list, margin, candidate-region
-dimensions, row capacity, padded axes, cell-sorted values), the repair of
-uncovered nodes, the grid entry point routed to the fused kernel
-(``ops/fused_grid_knn.py``), and the scatter-block kNN over arbitrary
-query points (``scatter_knn_apply``) with exact ``torch.topk`` selection.
-The streaming one-phase grid path (``_grid_block_weighted_sum``), its
-subset and cell-list repair stages, the ``backend='pallas'`` kernel,
-``grid_knn_apply`` and ``approx_min_k`` selection are not ported yet: the
-routes that need them raise ``NotImplementedError``.
+Counterpart of ``ptv_interpolation_tpu/ops/grid_knn.py``. Each grid block
+of ``bz×by×bx`` nodes gathers the candidates of its dilated bounding box
+once — ``mcz·mcy`` CSR rows of at most ``row_len`` points — and scores all
+its nodes against them:
+
+* :func:`_grid_block_weighted_sum` — the streaming one-phase path of
+  ``backend='xla'``: per node the k-th-distance threshold τ (24 halvings
+  of [0, margin²], or exact top-k), weights from a ``weight_fn`` over the
+  τ mask, per-channel sums, and a coverage sentinel (``den == 0`` when
+  fewer than k candidates lie within the margin);
+* :func:`_grid_block_eval` / :func:`grid_knn_apply` — the exact top-k
+  gather path that feeds a ``consume_fn`` (``exact_topk=True``);
+* :func:`repair_empty_nodes` — the ladder that recomputes uncovered
+  nodes: the fused repair, the subset stage, the cell-list CSR stage,
+  then brute force;
+* :func:`grid_weighted_interpolate` — the entry point that routes between
+  the fused kernel (``ops/fused_grid_knn.py``), the one-phase kernel of
+  ``backend='pallas'`` (``ops/pallas_grid_knn.py``) and the streaming
+  path;
+* :func:`scatter_knn_apply` — the scatter-block kNN over arbitrary query
+  points.
+
+Blocks are evaluated in chunks whose (blocks, B, C) panels stay bounded.
+Selection is exact everywhere: ``approx_min_k`` (``tau_mode='approx'``,
+``recall_target``) has no counterpart here and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,11 +41,15 @@ import torch
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.grid import Grid
 from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
-                                                       build_cell_list)
+                                                       build_cell_list,
+                                                       cell_meta_np)
 
 _ROW_PAD = 1024   # sentinel rows after the sorted arrays bound a row's length
 _BIG = 3.4e38     # sentinel squared distance of an empty candidate slot
 _SCATTER_ELEMS = 1 << 24   # bound on (blocks × b_cap × C) distance panels
+_PANEL_ELEMS = 1 << 24     # bound on (blocks × B × C) panels of the grid paths
+_BISECT_ITERS = 24
+_BRUTE_CHUNK = 131072      # queries per brute-force repair chunk
 
 
 def _block_counts(n: int, b: int) -> int:
@@ -49,6 +70,17 @@ def _pad_axis(ax, b: int) -> np.ndarray:
     return np.concatenate([ax, extra]).astype(np.float32)
 
 
+def _pad_pow2(q: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Pad query rows to the next power of two, replicating the last row,
+    as the JAX package buckets the repair stages' query counts. Returns
+    the padded rows and the real count."""
+    m = q.shape[0]
+    padded = 1 << max(m - 1, 1).bit_length()
+    if padded > m:
+        q = torch.cat([q, q[-1:].expand(padded - m, 3)])
+    return q, m
+
+
 class RowCapacityError(ValueError):
     """No cell resolution keeps a candidate row within the 1024-row
     sentinel padding (pathologically clustered or coincident points)."""
@@ -67,11 +99,15 @@ def _row_capacity(cells: CellList, mcx: int) -> int:
 
 
 def _host_setup(points, values, grid: Grid, k: int, block, margin_factor,
-                cell_divisor: float = 2.0, device="cuda"):
+                cell_divisor: float = 2.0, device="cuda",
+                cells: CellList | None = None,
+                cell_size: float | None = None):
     """Shared setup: cell list, margin, static candidate-region dimensions
     ``mc = (mcz, mcy, mcx)`` in cells, row capacity, padded axes and
     cell-sorted values. Auto cell edge = margin / ``cell_divisor`` (the
-    fused path passes 3).
+    fused path passes 3) unless ``cell_size`` is given; a prebuilt
+    ``cells`` (on ``device``) is used as it is, its origin standing for
+    the cloud's low corner.
 
     On strongly clustered clouds a candidate row can exceed 1024 points;
     the cell list is then rebuilt at finer resolution (a row's y/z
@@ -83,14 +119,22 @@ def _host_setup(points, values, grid: Grid, k: int, block, margin_factor,
     pts = as_f32(points, dev)
     vals = as_f32(values, dev)
     n = pts.shape[0]
-    lo = pts.amin(dim=0).cpu().numpy()
     hi = pts.amax(dim=0).cpu().numpy()
+    if cells is None:
+        lo = pts.amin(dim=0).cpu().numpy()
+    else:
+        if cells.device != dev:
+            raise ValueError(f"cells live on {cells.device}, not on {dev}")
+        lo, inv_c = cell_meta_np(cells)
+        cell_size = 1.0 / inv_c
     extent = np.maximum(hi - lo, 1e-12)
     density = n / float(np.prod(extent))
     r_k = (3.0 * k / (4.0 * math.pi * density)) ** (1.0 / 3.0)
-    cell_size = max(r_k * margin_factor / cell_divisor, 1e-6)
-    cells = build_cell_list(pts, cell_size=cell_size, bounds=(lo, hi),
-                            device=dev)
+    if cells is None:
+        if cell_size is None:
+            cell_size = max(r_k * margin_factor / cell_divisor, 1e-6)
+        cells = build_cell_list(pts, cell_size=cell_size, bounds=(lo, hi),
+                                device=dev)
 
     margin = r_k * margin_factor
     dx, dy, dz = grid.spacing
@@ -132,112 +176,649 @@ def _sort_values(vals: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
                       vals.new_zeros((_ROW_PAD, vals.shape[1]))])
 
 
+# ---------------------------------------------------------------------------
+# Per-block candidate regions
+# ---------------------------------------------------------------------------
+
+def _block_rows(cells: CellList, lo: torch.Tensor, m32: torch.Tensor,
+                mc: Tuple[int, int, int]):
+    """For blocks whose low corners are ``lo`` ((g, 3) f32 x, y, z), the
+    CSR ranges of their candidate regions: ``(start, cnt)``, each (g, R)
+    int64 with R = mcz·mcy rows of ``mcx`` cells starting ``margin``
+    (``m32``, an f32 scalar tensor) below the corner. Rows outside the
+    cell grid are empty (start 0, count 0)."""
+    mcz, mcy, mcx = mc
+    ncx, ncy, ncz = cells.dims
+    dev = cells.device
+    roz = torch.arange(mcz, dtype=torch.int32,
+                       device=dev).repeat_interleave(mcy)
+    roy = torch.arange(mcy, dtype=torch.int32, device=dev).repeat(mcz)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # f32, in the JAX package's op order: ((lo - margin) - origin) * inv
+    base = torch.floor(((lo - m32) - cells.origin)
+                       * cells.inv_cell).to(torch.int32)           # (g, 3)
+    cz = base[:, 2:3] + roz
+    cy = base[:, 1:2] + roy                                        # (g, R)
+    row_ok = (cz >= 0) & (cz < ncz) & (cy >= 0) & (cy < ncy)
+    x0 = base[:, 0:1].clamp(0, ncx)
+    x1 = (base[:, 0:1] + mcx).clamp(0, ncx)
+    rid = (cz * ncy + cy) * ncx
+    start = torch.where(row_ok,
+                        cells.starts[torch.where(row_ok, rid + x0, zero)],
+                        zero).long()
+    end = torch.where(row_ok,
+                      cells.starts[torch.where(row_ok, rid + x1, zero)],
+                      zero).long()
+    return start, end - start
+
+
+def _block_queries(axes, block: Tuple[int, int, int], nby: int, nbx: int,
+                   ids: torch.Tensor):
+    """Node coordinates of the blocks ``ids`` (flat block indices): three
+    (n, B) f32 tensors x, y, z, nodes in local (z, y, x) order, read from
+    the padded ``axes`` tensors. Also the blocks' low corners (n, 3)."""
+    bz, by, bx = block
+    x_ax, y_ax, z_ax = axes
+    dev = x_ax.device
+    ibz = ids // (nby * nbx)
+    iby = (ids // nbx) % nby
+    ibx = ids % nbx
+    t = torch.arange(bz * by * bx, device=dev)
+    qx = x_ax[ibx[:, None] * bx + (t % bx)[None, :]]
+    qy = y_ax[iby[:, None] * by + ((t // bx) % by)[None, :]]
+    qz = z_ax[ibz[:, None] * bz + (t // (by * bx))[None, :]]
+    lo = torch.stack([x_ax[ibx * bx], y_ax[iby * by], z_ax[ibz * bz]], dim=1)
+    return qx, qy, qz, lo
+
+
+def _axes_tensors(axes, device):
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in axes)
+
+
+def _block_panels(cells: CellList, values_sorted: torch.Tensor, axes_t,
+                  m32: torch.Tensor, ids: torch.Tensor,
+                  block: Tuple[int, int, int], nb: Tuple[int, int, int],
+                  mc: Tuple[int, int, int], row_len: int):
+    """The candidate panels of the blocks ``ids``: node coordinates q
+    (g, B, 3), candidate points (g, C, 3) and values (g, C, V) — R row
+    slices of ``row_len`` sorted rows each, C = R·row_len — their valid
+    mask (g, C) and d² (g, B, C), ``_BIG`` at invalid slots. d² is summed
+    as ``((dx·dx + dy·dy) + dz·dz)``, the JAX package's order."""
+    qx, qy, qz, lo = _block_queries(axes_t, block, nb[1], nb[2], ids)
+    start, cnt = _block_rows(cells, lo, m32, mc)
+    g, R = start.shape
+    lane = torch.arange(row_len, device=cells.device)
+    idx = (start[:, :, None] + lane).reshape(g, R * row_len)
+    valid = (lane < cnt[:, :, None]).reshape(g, R * row_len)
+    cand = cells.points_sorted[idx]
+    vals = values_sorted[idx]
+    d = qx[:, :, None] - cand[:, None, :, 0]
+    d2 = d * d
+    d = qy[:, :, None] - cand[:, None, :, 1]
+    d2 = d2 + d * d
+    d = qz[:, :, None] - cand[:, None, :, 2]
+    d2 = d2 + d * d
+    d2 = torch.where(valid[:, None, :], d2, _BIG)
+    q = torch.stack([qx, qy, qz], dim=-1)
+    return q, cand, vals, valid, d2
+
+
+def _block_chunks(n: int, B: int, C: int):
+    step = max(1, _PANEL_ELEMS // (B * C))
+    return range(0, n, step), step
+
+
+def _bisect_tau2(d2: torch.Tensor, kk: int, hi: torch.Tensor) -> torch.Tensor:
+    """τ² by 24 halvings of [0, hi] on the count #{d² ≤ mid} < kk (→ lo),
+    along the last axis of ``d2``; ``hi`` is an f32 scalar tensor."""
+    lo = torch.zeros_like(d2[..., :1])
+    hi = hi.expand_as(lo)
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        short = (d2 <= mid).sum(dim=-1, keepdim=True) < kk
+        lo = torch.where(short, mid, lo)
+        hi = torch.where(short, hi, mid)
+    return hi
+
+
+def _topk_slot_order(d2: torch.Tensor, kk: int):
+    """The kk smallest of each row of ``d2`` (rows, C), ascending, with
+    ties in slot order as ``lax.top_k`` gives them: ``(sq, args)``."""
+    sq, args = torch.topk(d2, kk, dim=-1, largest=False)
+    args, perm = torch.sort(args, dim=-1)
+    sq, perm2 = torch.sort(torch.gather(sq, -1, perm), dim=-1, stable=True)
+    return sq, torch.gather(args, -1, perm2)
+
+
+# ---------------------------------------------------------------------------
+# The streaming weighted-sum path
+# ---------------------------------------------------------------------------
+
+def _weighted_block_sum(cells: CellList, values_sorted: torch.Tensor, axes,
+                        margin, ids: torch.Tensor, k: int,
+                        block: Tuple[int, int, int],
+                        nb: Tuple[int, int, int], mc: Tuple[int, int, int],
+                        row_len: int, weight_fn: Callable,
+                        tau_mode: str) -> torch.Tensor:
+    """The weighted sums of the blocks ``ids``: (n_ids, B, V+1) with
+    ``Σw·v / max(Σw, 1e-37)`` per channel and ``Σw`` in the last column
+    where the node is covered (≥ min(k, C) candidates within the margin),
+    0 where it is not. ``margin`` is taken as an f32 value; τ² is bisected
+    on [0, margin²] (``tau_mode='bisect'``) or is the exact k-th distance²
+    clamped to margin² where covered (``'exact'``). ``weight_fn(d, mask,
+    sq_topk)`` gets (rows, C) panels (``sq_topk`` None when bisecting)."""
+    bz, by, bx = block
+    B = bz * by * bx
+    C = mc[0] * mc[1] * row_len
+    kk = min(k, C)
+    V = values_sorted.shape[1]
+    dev = cells.device
+    m32 = torch.tensor(np.float32(margin), device=dev)
+    m2 = m32 * m32
+    axes_t = _axes_tensors(axes, dev)
+    out = torch.empty((ids.shape[0], B, V + 1), dtype=torch.float32,
+                      device=dev)
+    starts, step = _block_chunks(ids.shape[0], B, C)
+    for s in starts:
+        _, _, vals, valid, d2 = _block_panels(
+            cells, values_sorted, axes_t, m32, ids[s:s + step], block, nb,
+            mc, row_len)
+        g = d2.shape[0]
+        d2 = d2.reshape(g * B, C)
+        valid = valid[:, None, :].expand(g, B, C).reshape(g * B, C)
+        covered = (d2 <= m2).sum(dim=-1, keepdim=True) >= kk
+        if tau_mode == "bisect":
+            sq_topk = None
+            tau2 = _bisect_tau2(d2, kk, m2)
+        else:
+            sq_topk = torch.topk(d2, kk, dim=-1, largest=False).values
+            tau2 = torch.minimum(sq_topk[:, -1:],
+                                 torch.where(covered, m2, _BIG))
+        mask = (d2 <= tau2) & valid
+        d = torch.sqrt(torch.clamp_min(d2, 0.0))
+        w = torch.where(mask, weight_fn(d, mask, sq_topk), 0.0).reshape(
+            g, B, C)
+        den = w.sum(dim=-1)
+        inv = 1.0 / torch.clamp_min(den, 1e-37)
+        for c in range(V):
+            out[s:s + g, :, c] = (w * vals[:, None, :, c]).sum(dim=-1) * inv
+        out[s:s + g, :, V] = torch.where(covered.reshape(g, B), den, 0.0)
+    return out
+
+
+def _tau_mode(tau_mode: str, exact_tau: bool) -> str:
+    """The selection mode, ``'bisect'`` or ``'exact'``; ``'approx'``
+    (``approx_min_k``) raises ``NotImplementedError``."""
+    mode = "exact" if exact_tau else tau_mode
+    if mode not in ("bisect", "exact"):
+        raise NotImplementedError(
+            f"tau_mode={tau_mode!r} (approx_min_k selection) has no PyTorch "
+            f"counterpart and is not ported; use 'bisect' or 'exact'")
+    return mode
+
+
+def _reassemble_blocks(rows: torch.Tensor, block: Tuple[int, int, int],
+                       grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """(n_blocks, B, ·) rows of every block → (nz, ny, nx, ·) node order."""
+    bz, by, bx = block
+    nz, ny, nx = grid_shape
+    nbz, nby, nbx = (_block_counts(nz, bz), _block_counts(ny, by),
+                     _block_counts(nx, bx))
+    o = rows.reshape(nbz, nby, nbx, bz, by, bx, -1)
+    o = o.permute(0, 3, 1, 4, 2, 5, 6)
+    o = o.reshape(nbz * bz, nby * by, nbx * bx, -1)
+    return o[:nz, :ny, :nx]
+
+
+def _grid_block_weighted_sum(cells: CellList, values_sorted: torch.Tensor,
+                             axes, margin, k: int,
+                             block: Tuple[int, int, int],
+                             grid_shape: Tuple[int, int, int],
+                             mc: Tuple[int, int, int], row_len: int,
+                             weight_fn: Callable, exact_tau: bool = False,
+                             tau_mode: str = "bisect"):
+    """The streaming weighted-sum path over every grid block: returns
+    ``(out, den)``, (nz, ny, nx, V) and (nz, ny, nx), with ``den == 0``
+    at the nodes the coverage sentinel flags for repair.
+
+    ``tau_mode``: ``'bisect'`` (τ² by 24 halvings of [0, margin²]) or
+    ``'exact'`` (top-k; ``exact_tau=True`` is the same). ``'approx'``
+    (``approx_min_k``) has no counterpart and raises
+    ``NotImplementedError``."""
+    mode = _tau_mode(tau_mode, exact_tau)
+    nz, ny, nx = grid_shape
+    bz, by, bx = block
+    nb = (_block_counts(nz, bz), _block_counts(ny, by),
+          _block_counts(nx, bx))
+    ids = torch.arange(nb[0] * nb[1] * nb[2], device=cells.device)
+    rows = _weighted_block_sum(cells, values_sorted, axes, margin, ids, k,
+                               block, nb, mc, row_len, weight_fn, mode)
+    out = _reassemble_blocks(rows, block, grid_shape)
+    V = values_sorted.shape[1]
+    return out[..., :V], out[..., V]
+
+
+def _grid_block_weighted_sum_subset(cells: CellList,
+                                    values_sorted: torch.Tensor, axes,
+                                    margin, ids, k: int,
+                                    block: Tuple[int, int, int],
+                                    grid_shape: Tuple[int, int, int],
+                                    mc: Tuple[int, int, int], row_len: int,
+                                    weight_fn: Callable) -> torch.Tensor:
+    """The bisect-τ weighted sum over a subset of grid blocks (``ids``:
+    flat block indices): returns (n_ids, B, V+1) in ``ids`` order — the
+    repair subset stage's evaluator when the fused one declines."""
+    nz, ny, nx = grid_shape
+    bz, by, bx = block
+    nb = (_block_counts(nz, bz), _block_counts(ny, by),
+          _block_counts(nx, bx))
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=cells.device)
+    return _weighted_block_sum(cells, values_sorted, axes, margin, ids, k,
+                               block, nb, mc, row_len, weight_fn, "bisect")
+
+
+def _generic_knn_fallback(points, values, queries, mode: str, power: float,
+                          k: int, device="cuda") -> torch.Tensor:
+    """Exact per-query interpolation through brute-force kNN with the
+    caller's ``k`` — for nodes, or whole clouds, the block paths cannot
+    serve."""
+    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+        idw_interpolate, sibson_interpolate)
+    k = min(k, int(points.shape[0]))
+    if mode == "idw":
+        return idw_interpolate(points, values, queries, k=k, power=power,
+                               device=device)
+    return sibson_interpolate(points, values, queries, k=k, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Repair
+# ---------------------------------------------------------------------------
+
+def _celllist_repair_eval_csr(cells: CellList, values_sorted: torch.Tensor,
+                              queries: torch.Tensor, k: int, rings: int,
+                              mode: str, power: float, guard_radius,
+                              query_tile: int = 512):
+    """IDW/sibson at ``queries`` over each one's ``(2·rings+1)³`` cell
+    neighbourhood in the CSR layout, with a coverage certificate.
+
+    Returns ``(vals, good)``: (Q, V) weighted sums and (Q,) bool, True iff
+    at least min(k, n_cand) candidates lie within ``guard_radius`` (taken
+    as an f32 value) — then the neighbourhood provably holds the true
+    k-set. τ² is bisected (24 halvings of [0, guard²]), as in the block
+    paths."""
+    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+        _idw_panel_weights, _sibson_panel_weights)
+    from ptv_interpolation_tpu_torch.ops.neighbors import (
+        csr_candidate_panel, map_query_tiles)
+    n_offsets = (2 * rings + 1) ** 3
+    kk = min(k, n_offsets * cells.cap)
+    weight_fn = (_idw_panel_weights(power) if mode == "idw"
+                 else _sibson_panel_weights())
+    g32 = torch.tensor(np.float32(guard_radius), device=cells.device)
+    g2 = g32 * g32
+    V = values_sorted.shape[1]
+
+    def tile(q_tile):
+        cand, d2 = csr_candidate_panel(cells, q_tile, rings)
+        good = (d2 <= g2).sum(dim=1) >= kk
+        tau2 = _bisect_tau2(d2, kk, g2)
+        mask = d2 <= tau2
+        d = torch.sqrt(torch.clamp_min(d2, 0.0))
+        w = torch.where(mask, weight_fn(d, mask, None), 0.0)
+        vals = values_sorted[cand]         # sentinel rows gather zeros
+        num = torch.stack([(w * vals[..., c]).sum(dim=1) for c in range(V)],
+                          dim=1)
+        den = w.sum(dim=1, keepdim=True)
+        return num / torch.clamp_min(den, 1e-37), good
+
+    return map_query_tiles(tile, queries, query_tile)
+
+
 def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
                        mode: str, power: float = 2.0,
                        cells: CellList | None = None,
                        margin: float | None = None, skip_mask=None,
                        values_sorted=None, block=None):
-    """Recompute the nodes the block kernel could not serve exactly — they
-    arrive with ``den == 0`` (the coverage sentinel) — in two stages:
+    """Recompute the nodes the block kernels could not serve exactly —
+    they arrive with ``den == 0`` (the coverage sentinel) — down a ladder
+    of stages, in the JAX package's order:
 
-    1. ``fused_repair``: the fused kernel again at 1.6× the margin over
-       just the blocks holding uncovered nodes; nodes certify themselves
-       through the widened coverage sentinel (needs ``cells``, ``margin``,
-       ``values_sorted`` and ``block``).
-    2. exact brute force against the whole cloud for what stage 1 left,
-       or for every uncovered node when stage 1 declines (too many
-       uncovered blocks, or a void-dominated cloud).
+    1. ``fused_repair``: the fused kernel at 1.6× the margin over the
+       blocks holding uncovered nodes; what it cannot certify goes
+       straight to brute force (step 4);
+    2. when the fused stage declines, the subset stage: the same
+       widened-margin block evaluation through
+       ``fused_subset_weighted_sum``, or the streaming subset evaluator
+       when its panel is too wide — only when the uncovered blocks are
+       few for the nodes (``n_blocks·B ≤ max(32·n_fix, 64·B)``);
+    3. when the subset stage did not run, the cell-list CSR stage: each
+       node's ``(2·rings+1)³`` cell neighbourhood at a guard radius of
+       ``rings·cell_size`` ≥ 1.6× the margin (``rings ≤ 6`` and at most
+       16 384 candidates per node);
+    4. exact brute force against the whole cloud for the rest, in chunks
+       of 131 072 nodes.
 
-    ``out``: (nz, ny, nx, V) and ``den``: (nz, ny, nx) tensors on the
-    device; ``skip_mask`` (True = skip) excludes nodes the caller
-    overwrites anyway. Returns the repaired (nz, ny, nx, V) field."""
-    if (cells is not None and margin is not None and block is not None
-            and values_sorted is not None):
+    Stages 1–3 need ``cells``, ``margin``, ``values_sorted`` (and
+    ``block`` for 1–2). ``out``: (nz, ny, nx, V) and ``den``: (nz, ny, nx)
+    tensors on one device; ``skip_mask`` (True = skip) excludes nodes the
+    caller overwrites anyway. The CUDA device runs the kernels, the CPU
+    their plain versions. Returns the repaired (nz, ny, nx, V) field.
+
+    ``repair_empty_nodes.last_stages`` records the last call: the number
+    of uncovered nodes (``"uncovered"``) and, for each stage that ran
+    (``"fused"``, ``"subset"``, ``"celllist"``, ``"bruteforce"``), how
+    many nodes it served."""
+    dev = out.device
+    skip = (None if skip_mask is None else
+            torch.as_tensor(skip_mask, dtype=torch.bool, device=dev))
+
+    def uncovered(den):
+        den_zero = den == 0.0
+        if skip is not None:
+            den_zero &= ~skip
+        return torch.nonzero(den_zero.reshape(-1)).squeeze(1)
+
+    flat = uncovered(den)
+    stages = {"uncovered": flat.numel()}
+    repair_empty_nodes.last_stages = stages
+    if flat.numel() == 0:
+        return out
+    ladder = (cells is not None and margin is not None
+              and values_sorted is not None)
+    if ladder and block is not None:
         from ptv_interpolation_tpu_torch.ops import fused_grid_knn
         res = fused_grid_knn.fused_repair(
             out, den, skip_mask, cells, values_sorted, grid, k, mode, power,
             tuple(block), float(margin))
         if res is not None:
-            out, den2, n_left = res
+            out, den, n_left = res
+            stages["fused"] = flat.numel() - n_left
             if n_left == 0:
                 return out
-            return repair_empty_nodes(out, den2, points, values, grid, k,
-                                      mode, power, skip_mask=skip_mask)
-    dev = out.device
-    den_zero = den == 0.0
-    if skip_mask is not None:
-        den_zero &= ~torch.as_tensor(skip_mask, dtype=torch.bool, device=dev)
-    flat = torch.nonzero(den_zero.reshape(-1)).squeeze(1)
+            # the widened margin could not certify these: brute force
+            flat = uncovered(den)
+            ladder = False
+
     n_fix = flat.numel()
-    if n_fix == 0:
-        return out
     nz, ny, nx = den.shape
+    V = out.shape[-1]
     iz, iy, ix = flat // (ny * nx), (flat // nx) % ny, flat % nx
     axes = [torch.as_tensor(a, dtype=torch.float32, device=dev)
             for a in (grid.x, grid.y, grid.z)]
     queries = torch.stack([axes[0][ix], axes[1][iy], axes[2][iz]], dim=-1)
-    n_nodes = nz * ny * nx
-    if n_fix > 0.01 * n_nodes:
-        print(f"[grid_knn] repairing {n_fix}/{n_nodes} uncovered grid nodes "
-              f"({100.0 * n_fix / n_nodes:.1f}%) through the exact "
-              f"brute-force path — the point cloud has large voids relative "
-              f"to the kNN margin")
-    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
-        idw_interpolate, sibson_interpolate)
-    kk = min(k, points.shape[0])
-    if mode == "idw":
-        fixed = idw_interpolate(points, values, queries, k=kk, power=power,
-                                device=dev)
-    else:
-        fixed = sibson_interpolate(points, values, queries, k=kk, device=dev)
-    V = out.shape[-1]
+    kk = min(k, int(points.shape[0]))
+    fixed = out.new_empty((n_fix, V))
+    todo = torch.arange(n_fix, device=dev)
+    ran_subset = False
+
+    if ladder and block is not None:
+        sub = _repair_subset_stage(cells, values_sorted, grid, kk, mode,
+                                   power, tuple(block), float(margin),
+                                   (iz, iy, ix), n_fix, V)
+        if sub is not None:
+            good, vals_sub = sub
+            fixed[good] = vals_sub[good]
+            todo = todo[~good]
+            stages["subset"] = int(good.sum().item())
+            ran_subset = True
+
+    if ladder and not ran_subset and todo.numel():
+        cell_size = 1.0 / cell_meta_np(cells)[1]
+        rings = int(math.ceil(1.6 * float(margin) / cell_size))
+        n_cand = (2 * rings + 1) ** 3 * cells.cap
+        # a per-node panel of n_cand candidates, bounded as the JAX
+        # package bounds it; bigger neighbourhoods go to brute force,
+        # which streams the points instead
+        if rings <= 6 and n_cand <= 16384:
+            qp, m = _pad_pow2(queries)
+            vals_cl, good = _celllist_repair_eval_csr(
+                cells, values_sorted, qp, kk, rings, mode, float(power),
+                rings * cell_size, query_tile=256)
+            good = good[:m]
+            fixed[good] = vals_cl[:m][good]
+            todo = todo[~good]
+            stages["celllist"] = int(good.sum().item())
+
+    if todo.numel():
+        n_nodes = nz * ny * nx
+        if todo.numel() > 0.01 * n_nodes:
+            print(f"[grid_knn] repairing {todo.numel()}/{n_nodes} uncovered "
+                  f"grid nodes ({100.0 * todo.numel() / n_nodes:.1f}%) "
+                  f"through the exact brute-force path — the point cloud "
+                  f"has large voids relative to the kNN margin")
+        from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+            idw_interpolate, sibson_interpolate)
+        for s in range(0, todo.numel(), _BRUTE_CHUNK):
+            sel = todo[s:s + _BRUTE_CHUNK]
+            qc, m = _pad_pow2(queries[sel])
+            if mode == "idw":
+                part = idw_interpolate(points, values, qc, k=kk, power=power,
+                                       device=dev)
+            else:
+                part = sibson_interpolate(points, values, qc, k=kk,
+                                          device=dev)
+            fixed[sel] = part[:m]
+        stages["bruteforce"] = todo.numel()
+
     out = out.reshape(-1, V).clone()
     out[flat] = fixed
     return out.reshape(den.shape + (V,))
 
 
+repair_empty_nodes.last_stages = None
+
+
+def _repair_subset_stage(cells: CellList, values_sorted, grid: Grid, kk: int,
+                         mode: str, power: float,
+                         block: Tuple[int, int, int], margin: float, nodes,
+                         n_fix: int, V: int):
+    """Stage 2 of :func:`repair_empty_nodes`: the widened-margin (1.6×)
+    block evaluation over the blocks holding the uncovered ``nodes``
+    ((iz, iy, ix) index tensors). Returns ``(good, vals)`` per node — good
+    where the widened coverage sentinel certifies it — or None when the
+    stage does not apply (too many blocks for the nodes, or no evaluator
+    fits the panel)."""
+    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+        _idw_panel_weights, _sibson_panel_weights)
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn
+    iz, iy, ix = nodes
+    bz, by, bx = block
+    nzs, nys, nxs = grid.shape
+    nby, nbx = _block_counts(nys, by), _block_counts(nxs, bx)
+    blk = ((iz // bz) * nby + (iy // by)) * nbx + (ix // bx)
+    uniq, inv = torch.unique(blk, return_inverse=True)
+    B = bz * by * bx
+    # void-dominated clouds scatter uncovered nodes over most blocks:
+    # certification would fail there anyway and brute force does the work
+    if uniq.numel() * B > max(32 * n_fix, 64 * B):
+        return None
+    cell_size = 1.0 / cell_meta_np(cells)[1]
+    margin2 = 1.6 * margin
+    dx, dy, dz = grid.spacing
+    mc2 = tuple(int(math.ceil((ext + 2.0 * margin2) / cell_size)) + 1
+                for ext in (bx * dx, by * dy, bz * dz))[::-1]
+    axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
+             _pad_axis(grid.z, bz))
+    uniq_np = uniq.cpu().numpy()
+    rows = fused_grid_knn.fused_subset_weighted_sum(
+        cells, values_sorted, axes2, margin2, uniq_np, kk, block, grid.shape,
+        mc2, mode, power, V)
+    if rows is None:
+        row_len2 = _row_capacity(cells, mc2[2])
+        if row_len2 > _ROW_PAD:
+            return None
+        weight_fn = (_idw_panel_weights(power) if mode == "idw"
+                     else _sibson_panel_weights())
+        n_pad = 1 << max(len(uniq_np) - 1, 1).bit_length()
+        ids = np.concatenate([uniq_np, np.broadcast_to(
+            uniq_np[-1:], (n_pad - len(uniq_np),))])
+        rows = _grid_block_weighted_sum_subset(
+            cells, values_sorted, axes2, margin2, ids, kk, block, grid.shape,
+            mc2, row_len2, weight_fn)[:len(uniq_np)]
+    local = ((iz % bz) * by + (iy % by)) * bx + (ix % bx)
+    picked = rows.reshape(-1, V + 1)[inv * B + local]
+    return picked[:, V] > 0.0, picked[:, :V]
+
+
+# ---------------------------------------------------------------------------
+# Grid entry points
+# ---------------------------------------------------------------------------
+
 def grid_weighted_interpolate(points, values, grid: Grid, k: int,
                               weight_fn: Callable,
                               cells: CellList | None = None,
+                              cell_size: float | None = None,
                               block: Tuple[int, int, int] | None = None,
                               margin_factor: float = 1.45,
                               backend: str = "auto", mode: str = "sibson",
-                              power: float = 2.0, tau_mode: str = "bisect",
-                              skip_mask=None, device="cuda"):
+                              power: float = 2.0, exact_tau: bool = False,
+                              tau_mode: str = "bisect", skip_mask=None,
+                              device="cuda") -> torch.Tensor:
     """IDW/sibson onto ``grid`` on ``device``; returns an (nz, ny, nx, V)
     tensor there.
 
-    ``backend``: ``'auto'`` and ``'fused'`` both run the fused two-phase
-    kernel (``ops/fused_grid_knn.py``) with ``tau_mode='bisect'``, which
-    needs ``weight_fn`` to be the canned formula for ``mode``
-    (``knn_weights._idw_panel_weights`` / ``_sibson_panel_weights``). The
-    streaming path that would serve ``backend='xla'``, other τ modes, a
-    custom ``weight_fn`` or a prebuilt ``cells`` is not ported yet, and
-    neither is ``backend='pallas'``: those raise ``NotImplementedError``.
-    ``FusedCapacityError`` and ``RowCapacityError`` propagate."""
-    if backend not in ("auto", "fused"):
-        if backend in ("xla", "pallas"):
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported yet; use 'fused'")
+    ``backend`` selects the formulation:
+
+    * ``'auto'``: the fused two-phase kernel (``ops/fused_grid_knn.py``)
+      when ``weight_fn`` is the canned formula for ``mode``
+      (``knn_weights._idw_panel_weights`` / ``_sibson_panel_weights``),
+      ``tau_mode='bisect'`` and no prebuilt ``cells`` is given; the
+      streaming path otherwise, and when the fused panel is too wide
+      (``FusedCapacityError``) or no cell size fits (``RowCapacityError``);
+    * ``'fused'``: the fused kernel, no fallback;
+    * ``'xla'``: the streaming one-phase path (:func:`_grid_block_weighted_sum`);
+    * ``'pallas'``: the one-phase kernel of ``ops/pallas_grid_knn.py``
+      with its own defaults (block (2, 8, 8), 14 halvings, no repair);
+      ``block``, ``skip_mask`` and the τ options are ignored.
+
+    ``tau_mode``: ``'bisect'`` or ``'exact'`` (``exact_tau=True``);
+    ``'approx'`` raises ``NotImplementedError``. When no cell resolution
+    fits the block paths' row capacity (e.g. >1024 coincident points),
+    the whole grid goes through exact brute-force kNN."""
+    if block is None:
+        block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
+    if backend == "pallas":
+        from ptv_interpolation_tpu_torch.ops.pallas_grid_knn import (
+            pallas_grid_weighted_interpolate)
+        return pallas_grid_weighted_interpolate(
+            points, values, grid, k, mode=mode, power=power,
+            margin_factor=margin_factor, device=device)
+    if backend not in ("auto", "fused", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     canned = getattr(weight_fn, "canned_mode", None) == mode
     if backend == "fused" and not canned:
         raise ValueError(
             "backend='fused' computes its own idw/sibson weights and "
             "cannot honor a custom weight_fn; use backend='xla'")
-    if backend == "fused" and tau_mode != "bisect":
+    if backend == "fused" and (exact_tau or tau_mode != "bisect"):
         raise ValueError(
             "backend='fused' implements tau_mode='bisect' only; use "
-            "backend='xla' for approx/exact selection modes")
-    if not canned or tau_mode != "bisect" or cells is not None:
+            "backend='xla' for the exact selection mode")
+    _tau_mode(tau_mode, exact_tau)
+    if backend == "fused" or (
+            backend == "auto" and canned and tau_mode == "bisect"
+            and not exact_tau and cells is None
+            and mode in ("idw", "sibson")):
+        from ptv_interpolation_tpu_torch.ops.fused_grid_knn import (
+            FusedCapacityError, fused_grid_weighted_interpolate)
+        try:
+            return fused_grid_weighted_interpolate(
+                points, values, grid, k, mode=mode, power=power, block=block,
+                margin_factor=margin_factor, skip_mask=skip_mask,
+                device=device)
+        except (FusedCapacityError, RowCapacityError):
+            if backend == "fused":
+                raise
+    dev = resolve_device(device)
+    try:
+        setup = _host_setup(points, values, grid, k, block, margin_factor,
+                            device=dev, cells=cells, cell_size=cell_size)
+    except RowCapacityError:
+        out = _generic_knn_fallback(points, values, grid.flat_coords(dev),
+                                    mode, power, k, device=dev)
+        return out.reshape(grid.shape + (-1,))
+    cells, values_sorted, axes, margin, mc, row_len, vals = setup
+    out, den = _grid_block_weighted_sum(cells, values_sorted, axes, margin, k,
+                                        tuple(block), grid.shape, mc,
+                                        row_len, weight_fn, exact_tau,
+                                        tau_mode)
+    return repair_empty_nodes(out, den, as_f32(points, dev), vals, grid, k,
+                              mode, power, cells=cells, margin=margin,
+                              skip_mask=skip_mask,
+                              values_sorted=values_sorted, block=block)
+
+
+def _grid_block_eval(cells: CellList, values_sorted: torch.Tensor, axes,
+                     margin, k: int, block: Tuple[int, int, int],
+                     grid_shape: Tuple[int, int, int],
+                     mc: Tuple[int, int, int], row_len: int, out_dim: int,
+                     consume_fn: Callable,
+                     needs_positions: bool = True) -> torch.Tensor:
+    """Exact top-k of every grid node among its block's candidates, fed
+    to ``consume_fn(sq, n_pos, n_val, n_ok, q)`` on (rows, kk[, ·])
+    batches (``n_pos`` None unless ``needs_positions``); returns
+    (nz, ny, nx, out_dim). Ties come in slot order, as ``lax.top_k``
+    orders them."""
+    nz, ny, nx = grid_shape
+    bz, by, bx = block
+    nb = (_block_counts(nz, bz), _block_counts(ny, by),
+          _block_counts(nx, bx))
+    B = bz * by * bx
+    C = mc[0] * mc[1] * row_len
+    kk = min(k, C)
+    dev = cells.device
+    m32 = torch.tensor(np.float32(margin), device=dev)
+    axes_t = _axes_tensors(axes, dev)
+    ids = torch.arange(nb[0] * nb[1] * nb[2], device=dev)
+    out = torch.empty((ids.shape[0] * B, out_dim), dtype=torch.float32,
+                      device=dev)
+    starts, step = _block_chunks(ids.shape[0], B, C)
+    for s in starts:
+        q, cand, vals, valid, d2 = _block_panels(
+            cells, values_sorted, axes_t, m32, ids[s:s + step], block, nb,
+            mc, row_len)
+        g = d2.shape[0]
+        sq, args = _topk_slot_order(d2.reshape(g * B, C), kk)
+        args = args.reshape(g, B * kk)
+        n_val = torch.gather(vals, 1, args[..., None].expand(
+            g, B * kk, vals.shape[-1])).reshape(g * B, kk, -1)
+        n_ok = torch.gather(valid, 1, args).reshape(g * B, kk) & (sq < _BIG)
+        n_pos = (torch.gather(cand, 1, args[..., None].expand(g, B * kk, 3))
+                 .reshape(g * B, kk, 3) if needs_positions else None)
+        out[s * B:(s + g) * B] = consume_fn(sq, n_pos, n_val, n_ok,
+                                            q.reshape(g * B, 3))
+    return _reassemble_blocks(out.reshape(-1, B, out_dim), block, grid_shape)
+
+
+def grid_knn_apply(points, values, grid: Grid, k: int, consume_fn: Callable,
+                   out_dim: int, cells: CellList | None = None,
+                   cell_size: float | None = None,
+                   block: Tuple[int, int, int] = (8, 8, 8),
+                   margin_factor: float = 1.45, exact_topk: bool = False,
+                   needs_positions: bool = True,
+                   device="cuda") -> torch.Tensor:
+    """Evaluate ``consume_fn`` on the k nearest ``points`` of every grid
+    node on ``device``: ``consume_fn(sq_dists, neighbor_pos,
+    neighbor_vals, valid, q)`` maps a (rows, k[, ·]) neighbourhood batch to
+    (rows, out_dim); returns (nz, ny, nx, out_dim).
+
+    The cell size makes each block's candidate region cover the expected
+    k-th-neighbour radius times ``margin_factor``; nodes whose true k-set
+    reaches beyond it get the k nearest of the region. Only exact
+    selection is ported: ``exact_topk=False`` (``approx_min_k``) raises
+    ``NotImplementedError``."""
+    if not exact_topk:
         raise NotImplementedError(
-            "a custom weight_fn, tau_mode other than 'bisect' or a prebuilt "
-            "cell list needs the streaming path, which is not ported yet")
-    from ptv_interpolation_tpu_torch.ops.fused_grid_knn import (
-        fused_grid_weighted_interpolate)
-    return fused_grid_weighted_interpolate(
-        points, values, grid, k, mode=mode, power=power, block=block,
-        margin_factor=margin_factor, skip_mask=skip_mask, device=device)
+            "approximate selection (approx_min_k) has no PyTorch "
+            "counterpart and is not ported; pass exact_topk=True")
+    cells, values_sorted, axes, margin, mc, row_len, _ = _host_setup(
+        points, values, grid, k, block, margin_factor, device=device,
+        cells=cells, cell_size=cell_size)
+    return _grid_block_eval(cells, values_sorted, axes, margin, k,
+                            tuple(block), grid.shape, mc, row_len, out_dim,
+                            consume_fn, needs_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -283,12 +864,8 @@ def _scatter_block_eval(cells: CellList, values_sorted: torch.Tensor,
         d2 = d2 + d * d                                       # (g, b, C)
         del d
         d2 = torch.where(valid[:, None, :], d2, _BIG)
-        sq, args = torch.topk(d2, kk, dim=-1, largest=False)
+        sq, args = _topk_slot_order(d2, kk)
         del d2
-        args, perm = torch.sort(args, dim=-1)
-        sq, perm2 = torch.sort(torch.gather(sq, -1, perm), dim=-1,
-                               stable=True)
-        args = torch.gather(args, -1, perm2)
         rows = torch.gather(G, 1, args.reshape(args.shape[0], -1))
         n_val = values_sorted[rows].reshape(args.shape + (-1,))
         n_ok = (torch.gather(valid, 1, args.reshape(args.shape[0], -1))

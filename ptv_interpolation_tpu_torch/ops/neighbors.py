@@ -8,9 +8,11 @@ Counterpart of ``ptv_interpolation_tpu/ops/neighbors.py``:
   the grid path's last repair stage.
 * :class:`CellList` / :func:`build_cell_list` — particles bucketed into a
   uniform voxel grid in CSR form (``starts`` + ``order`` +
-  ``points_sorted``), the layout the fused grid kernel gathers from. Only
-  the CSR layout is ported; the dense per-cell ``table`` of the JAX
-  package serves paths that are not ported yet.
+  ``points_sorted``), the layout the grid kernels gather from, and
+  :func:`csr_candidate_panel`, the per-query cell-neighbourhood panel of
+  the repair's cell-list stage. Only the CSR layout is ported; the dense
+  per-cell ``table`` of the JAX package serves paths that are not ported
+  yet.
 """
 
 from __future__ import annotations
@@ -209,3 +211,46 @@ def build_cell_list(points, cell_size: float | None = None, k_hint: int = 32,
 def cell_meta_np(cells: CellList):
     """(origin, inv) as host values."""
     return np.asarray(cells.origin_host, np.float32), float(cells.inv_host)
+
+
+def csr_candidate_panel(cells: CellList, q_tile: torch.Tensor, rings: int):
+    """For each query of ``q_tile`` (T, 3), the ``(2·rings+1)³·cap``
+    candidate rows of its cell neighbourhood as indices into the
+    cell-sorted arrays (``starts[cell] + lane``), and their squared
+    distances. Empty slots and cells outside the grid point at the
+    sentinel row ``cells.n_points`` and carry d² = ``_BIG``.
+
+    Returns ``(cand, d2)``, both (T, n_offsets·cap), slots ordered by
+    neighbour cell (z slowest, x fastest) and lane, as the JAX package
+    orders them."""
+    ncx, ncy, ncz = cells.dims
+    cap = cells.cap
+    n_sent = cells.n_points
+    dev = q_tile.device
+    r = torch.arange(-rings, rings + 1, dtype=torch.int32, device=dev)
+    oz, oy, ox = torch.meshgrid(r, r, r, indexing="ij")
+    offs = torch.stack([ox, oy, oz], dim=-1).reshape(-1, 3)       # (n_off, 3)
+    dims = torch.tensor([ncx, ncy, ncz], dtype=torch.int32, device=dev)
+
+    T = q_tile.shape[0]
+    cidx = torch.floor((q_tile - cells.origin) * cells.inv_cell).to(
+        torch.int32)
+    cidx = torch.minimum(cidx.clamp_min(0), dims - 1)
+    neigh = cidx[:, None, :] + offs[None, :, :]
+    in_range = ((neigh >= 0) & (neigh < dims)).all(dim=-1)
+    cell_ids = (neigh[..., 2] * ncy + neigh[..., 1]) * ncx + neigh[..., 0]
+    cell_ids = torch.where(in_range, cell_ids, 0).long()
+    s = cells.starts[cell_ids].long()                              # (T, n_off)
+    e = cells.starts[cell_ids + 1].long()
+    lane = torch.arange(cap, device=dev)
+    cand = s[..., None] + lane                                     # (T, n_off, cap)
+    ok = in_range[..., None] & (cand < e[..., None])
+    cand = torch.where(ok, cand, n_sent).reshape(T, -1)
+    p = cells.points_sorted[cand]
+    d = q_tile[:, None, 0] - p[..., 0]
+    d2 = d * d
+    d = q_tile[:, None, 1] - p[..., 1]
+    d2 = d2 + d * d
+    d = q_tile[:, None, 2] - p[..., 2]
+    d2 = d2 + d * d
+    return cand, torch.where(cand == n_sent, _BIG, d2)

@@ -137,21 +137,23 @@ def test_grid_slice_after_refinement_matches_bruteforce(mode):
 
 
 def test_grid_entry_points_refuse_unported_routes():
+    """What stays refused: approximate selection, a custom weight_fn on
+    the fused kernel and the fused panel guard. The exact top-k gather
+    route and the 'xla' and 'pallas' backends run."""
     pts, vals, bounds, n = fx.uniform(n_pts=1000, n=12)
     grid = create_grid(bounds, n)
-    with pytest.raises(NotImplementedError, match="exact_topk"):
-        tkw.sibson_grid_interpolate(pts, vals, grid, k=8, exact_topk=True,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="exact_topk"):
-        tkw.idw_grid_interpolate(pts, vals, grid, k=8, exact_topk=True,
-                                 device="cpu")
-    for backend in ("xla", "pallas"):
-        with pytest.raises(NotImplementedError, match=backend):
-            tkw.sibson_grid_interpolate(pts, vals, grid, k=8,
-                                        backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
+    for entry in (tkw.sibson_grid_interpolate, tkw.idw_grid_interpolate):
+        for kw in (dict(exact_topk=True), dict(backend="xla"),
+                   dict(backend="pallas")):
+            out = entry(pts, vals, grid, k=8, device="cpu", **kw)
+            assert out.shape == (n, n, n, 3), kw
+            assert bool(torch.isfinite(out).all()), kw
+    with pytest.raises(NotImplementedError, match="approx_min_k"):
         tkw.sibson_grid_interpolate(pts, vals, grid, k=8, tau_mode="approx",
                                     device="cpu")
+    with pytest.raises(NotImplementedError, match="approx_min_k"):
+        tkw.idw_grid_interpolate(pts, vals, grid, k=8, tau_mode="approx",
+                                 backend="xla", device="cpu")
     with pytest.raises(ValueError, match="custom weight_fn"):
         tgk.grid_weighted_interpolate(pts, vals, grid, 8,
                                       lambda d, m, s: 1.0 / (d + 1e-6),

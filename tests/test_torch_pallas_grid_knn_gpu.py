@@ -1,0 +1,157 @@
+"""The CUDA kernel of the one-phase grid route (``backend='pallas'``)
+against its plain PyTorch version, and the streaming and gather routes on
+the GPU against the same routes on the CPU. Needs an NVIDIA GPU and
+``nvcc`` (marker ``gpu``); skipped elsewhere.
+
+This file imports no JAX, so it also runs where JAX is not installed:
+``python -m pytest --noconftest -m gpu tests/test_torch_pallas_grid_knn_gpu.py``
+(``tests/conftest.py`` imports JAX)."""
+
+import numpy as np
+import pytest
+import torch
+
+from ptv_interpolation_tpu_torch.grid import create_grid
+from ptv_interpolation_tpu_torch.interpolate import (idw_grid_interpolate,
+                                                     sibson_grid_interpolate)
+from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+from ptv_interpolation_tpu_torch.ops import pallas_grid_knn as tpg
+import torch_port_fixtures as fx
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.gpu
+
+# τ² (column 3) is bit-equal: d², hi and the midpoints are the same f32
+# ops in the same order. The weighted sums accumulate in f64 in both, and
+# expf differs from torch.exp by an ulp or so.
+RTOL, ATOL = 1e-5, 1e-6
+BLOCK = (2, 8, 8)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(cloud, k, device):
+    """The kernel's inputs over every block of the cloud's grid: the small
+    grids hold the corner and edge blocks and blocks whose windows leave
+    the cell grid."""
+    pts, vals, bounds, n = cloud
+    starts, axes, store, dims, L = tpg._pallas_setup(
+        pts, vals, create_grid(bounds, n), k, BLOCK, 1.45, device)
+    ids = torch.arange(starts.shape[0], dtype=torch.int32, device=device)
+    return starts, ids, axes, store, BLOCK, dims, L
+
+
+def _check(got, want):
+    assert torch.equal(got[..., 3], want[..., 3]), "τ² differs"
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _launch_and_plain(args, k, mode, power, iters=14):
+    before = tpg._pallas_eval.launches
+    got = tpg._pallas_eval(*args, k, mode, power, iters)
+    want = tpg._pallas_eval_plain(*args, k, mode, power, iters)
+    torch.cuda.synchronize()
+    assert tpg._pallas_eval.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("cloud,mode,power,iters", [
+    ("corner_slab", "sibson", 2.0, 14), ("corner_slab", "idw", 2.0, 14),
+    ("uniform", "idw", 3.0, 14), ("ragged", "sibson", 2.0, 18),
+    ("void_region", "sibson", 2.0, 14), ("void_region", "idw", 2.5, 14),
+])
+def test_pallas_kernel_matches_plain_on_gpu(cuda_device, cloud, mode, power,
+                                            iters):
+    """Every block, both modes; nodes whose windows hold no point (above
+    the void region's cloud) are exactly 0 in both."""
+    args = _inputs(getattr(fx, cloud)(), 10, cuda_device)
+    got, want = _launch_and_plain(args, 10, mode, power, iters)
+    _check(got, want)
+    if cloud == "void_region":
+        empty = (want[..., :3] == 0).all(dim=-1)
+        assert int(empty.sum()) > 100, "fixture must have empty windows"
+        assert bool((got[..., :3][empty] == 0).all())
+
+
+def test_pallas_kernel_on_a_block_subset(cuda_device):
+    """Blocks in another order than the lattice's, corners first."""
+    starts, ids, *rest = _inputs(fx.corner_slab(), 10, cuda_device)
+    n = starts.shape[0]
+    pick = torch.tensor([n - 1, 0, 7, n // 2, 3, n - 2], device=cuda_device)
+    args = (starts[pick].contiguous(), ids[pick].contiguous(), *rest)
+    got, want = _launch_and_plain(args, 10, "sibson", 2.0)
+    _check(got, want)
+    full = tpg._pallas_eval(starts, ids, *rest, 10, "sibson", 2.0, 14)
+    assert torch.equal(got, full[pick])
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_pallas_kernel_chunked_staging(cuda_device, mode, monkeypatch):
+    """Panels wider than the staged width are staged chunk by chunk on
+    every pass: a dense cloud at k=300, whose C exceeds the width, and a
+    small cloud with the width cut to 512 slots."""
+    pts = np.random.default_rng(3).uniform(0, 16, size=(20000, 3)).astype(
+        np.float32)
+    vals = np.stack([np.sin(pts[:, 0]), np.cos(pts[:, 1]), pts[:, 2]],
+                    axis=-1).astype(np.float32)
+    args = _inputs((pts, vals, ((0, 17),) * 3, 16), 300, cuda_device)
+    starts, L = args[0], args[-1]
+    assert starts.shape[1] * L > tpg._MAX_CHUNK
+    _check(*_launch_and_plain(args, 300, mode, 2.0))
+    monkeypatch.setattr(tpg, "_MAX_CHUNK", 512)
+    args = _inputs(fx.corner_slab(), 10, cuda_device)
+    assert args[0].shape[1] * args[-1] > 512
+    _check(*_launch_and_plain(args, 10, mode, 2.0))
+
+
+def test_pallas_kernel_refuses_non_contiguous_input(cuda_device):
+    starts, ids, *rest = _inputs(fx.uniform(), 10, cuda_device)
+    strided = torch.empty((starts.shape[0], 2 * starts.shape[1]),
+                          dtype=torch.int32, device=cuda_device)[:, ::2]
+    strided.copy_(starts)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpg._pallas_eval(strided, ids, *rest, 10, "idw", 2.0, 14)
+
+
+@pytest.mark.parametrize("entry", [sibson_grid_interpolate,
+                                   idw_grid_interpolate])
+def test_pallas_route_on_gpu_matches_cpu(cuda_device, entry):
+    """``backend='pallas'`` through the entry points launches the kernel
+    once and agrees with the plain version's route on the CPU."""
+    pts, vals, bounds, n = fx.ragged()
+    grid = create_grid(bounds, n)
+    before = tpg._pallas_eval.launches
+    got = entry(pts, vals, grid, k=10, backend="pallas", device=cuda_device)
+    torch.cuda.synchronize()
+    assert tpg._pallas_eval.launches == before + 1
+    want = entry(pts, vals, grid, k=10, backend="pallas", device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("route", ["xla", "exact_topk"])
+def test_streaming_and_gather_routes_on_gpu_match_cpu(cuda_device, route):
+    """The streaming path (its repair ladder launches the grid kernel) and
+    the exact top-k gather path on the GPU against the CPU."""
+    pts, vals, bounds, n = fx.void_region()
+    grid = create_grid(bounds, n)
+    kw = dict(k=8, block=(2, 4, 8))
+    kw.update(dict(backend="xla") if route == "xla" else
+              dict(exact_topk=True))
+    before = tfg._fused_eval.launches
+    got = sibson_grid_interpolate(pts, vals, grid, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    stages = dict(tgk.repair_empty_nodes.last_stages or {})
+    if route == "xla":
+        assert tfg._fused_eval.launches > before
+    want = sibson_grid_interpolate(pts, vals, grid, device="cpu", **kw)
+    if route == "xla":
+        assert stages == tgk.repair_empty_nodes.last_stages
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

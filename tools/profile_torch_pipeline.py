@@ -10,7 +10,8 @@ the device's busy and idle share of that wall (kernels of the one stream
 do not overlap, so busy time is the sum of their device times); then,
 from one more run without the profiler, the walls of the layers inside
 the filter and interpolate stages (each between two synchronisations)
-and how many grid nodes reach repair. ``--trace FILE`` also writes the
+and how many grid nodes reach repair and which stage of the repair ladder
+serves them. ``--trace FILE`` also writes the
 Chrome trace.
 
     python tools/profile_torch_pipeline.py [--trace trace.json]
@@ -36,6 +37,7 @@ def main():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     from chip_smoke import make_pipeline_problem, pipeline_config
     from ptv_interpolation_tpu_torch.io import PointCloud
+    from ptv_interpolation_tpu_torch.interpolate import knn_weights
     from ptv_interpolation_tpu_torch.ops import (fused_grid_knn, fused_mad,
                                                  grid_knn)
     from ptv_interpolation_tpu_torch.pipeline import run_pipeline
@@ -79,6 +81,10 @@ def main():
           "interpolate: fused grid path")
     timed(fused_grid_knn, "_fused_eval", "interpolate: grid kernel launch")
     timed(fused_grid_knn, "repair_empty_nodes", "interpolate: repair")
+    timed(grid_knn, "_celllist_repair_eval_csr",
+          "interpolate: repair, cell-list stage")
+    timed(knn_weights, "sibson_interpolate",
+          "interpolate: repair, brute-force stage")
     fused_repair = fused_grid_knn.fused_repair
 
     def count_fused(field, den, skip, *a, **kw):
@@ -116,7 +122,8 @@ def main():
     print("layer walls, synchronised, in a run without the profiler: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items()))
     print(f"repair: uncovered fluid nodes and the fused stage's verdict "
-          f"{nodes}")
+          f"{nodes}; nodes served by each stage of the ladder "
+          f"{grid_knn.repair_empty_nodes.last_stages}")
     print(f"{torch.cuda.get_device_name(0)}: wall {wall:.4f} s (profiled), "
           f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall:.1%}, "
           f"idle {1 - busy_us / 1e6 / wall:.1%}")
