@@ -14,7 +14,11 @@ and the script exits non-zero:
 3. the grid kernel against its plain PyTorch version on the headline problem
    (``bench.make_problem``: 1M points → 256³, k=50, block (8,8,16)): on a
    subset of blocks with the corner and edge blocks, sibson and IDW, then
-   over the full panel (16 384 blocks × 4 sub-tiles), timed;
+   over the full panel (16 384 blocks × 4 sub-tiles), timed — τ² (the
+   kernel's optional τ² output) bit-equal to the plain bisection's, den==0
+   identical, values within RTOL/ATOL; it prints how many nodes overflowed
+   their shortlist and ran over the whole panel, and the kernel's bound
+   (``bound_ms``) reckoned from this panel's pairs within the margin;
 4. the main path: ``sibson_grid_interpolate(..., device="cuda")`` — one
    warm-up and 3 timed runs, the kernel's launch counts for the main pass
    and for repair, peak memory, a stage-by-stage breakdown, and relative
@@ -23,7 +27,9 @@ and the script exits non-zero:
 5. the MAD kernel against its plain version on the filter's panel of the
    phase-6 problem: a subset of scatter blocks with the 8 domain corners
    and the planted outliers at k = 30 and 25, then the full panel at
-   k = 30, timed;
+   k = 30, timed — keep|covered identical and rows 1–3 (√τ², med, mad)
+   bit-equal; it prints the shortlist overflow counts and the kernel's
+   bound reckoned from this panel's pairs within the margin;
 6. the pipeline: ``run_pipeline(..., device="cuda")`` at the production
    shape (a 486×336×322 raw mask, 650 000 tracks, downscale 2 → a
    161×168×243 grid; MAD filter k=30, boundary particles, sibson k=50) —
@@ -48,9 +54,16 @@ and the script exits non-zero:
    f64 scipy on 20k interior nodes.
 
 The second-to-last line of standard output is the kernels' JSON record
-(``ms`` and ``plain_ms`` are the full panel for the first two kernels and
-phase 7's fixed slice for the third), the last line ``{"ok": true,
-"device": {...}}``.
+(``ms``, ``plain_ms`` and ``bound_ms`` are the full panel for the first two
+kernels and phase 7's fixed slice for the third; ``bound_ms`` is the larger
+of the d² the function needs, 8 unfused fp32 operations each at 33.5e12/s
+(the 67 TFLOP/s peak counts an FMA as two), and each input byte read once
+and each output byte written once at 3.35 TB/s. Kernels 1 and 2 need the
+d² of the (query, candidate) pairs within the margin, the only ones that
+can change their outputs; kernel 3 needs every real point of its windows,
+since the farthest sets its bisection's upper bound. ``library_ms`` is
+null: no one PyTorch call computes these functions), the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -65,6 +78,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCK = (8, 8, 16)
 RTOL, ATOL = 1e-5, 1e-6    # summation order and expf differ; d², τ² bit-equal
 L2_LIMIT = 1e-6
+# H100 SXM at 700 W: 67 TFLOP/s fp32 outside the tensor cores counts an FMA
+# as two operations; d² is formed with __fmul_rn/__fadd_rn, which are not
+# fused, so its operations issue at half that rate
+FP32_UNFUSED_RATE = 33.5e12
+HBM_RATE = 3.35e12         # H100 SXM HBM3 bytes/s
+D2_OPS = 8                 # fp32 operations of one d²: 3 sub, 3 mul, 2 add
+REAL = 1e18                # coordinates at or above it are sentinels/padding
 
 
 def log(msg=""):
@@ -122,6 +142,71 @@ def _cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(pairs, n_bytes):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``pairs`` d² evaluations (8 unfused fp32 operations each) and
+    ``n_bytes`` moved once (at the HBM rate), whichever is larger."""
+    ops_ms = float(pairs) * D2_OPS / FP32_UNFUSED_RATE * 1e3
+    bytes_ms = float(n_bytes) / HBM_RATE * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def _pairs_within(torch, m2, c, q):
+    """The (query, candidate) pairs of each block with d² ≤ m2, sentinel
+    candidates and padding queries left out: the only pairs whose d² can
+    change the grid or MAD kernel's output (a pair beyond the margin
+    counts toward no coverage, halving or sum). ``c``: (3, nb, C) x, y, z
+    of the panel, ``q``: (3, nb, B) of the queries; counted in chunks of
+    blocks, d² summed in the kernels' op order."""
+    _, nb, C = c.shape
+    B = q.shape[2]
+    step = max(1, (1 << 27) // (B * C))
+    total = 0
+    for b0 in range(0, nb, step):
+        cs, qs = c[:, b0:b0 + step], q[:, b0:b0 + step]
+        d = qs[0, :, :, None] - cs[0, :, None, :]
+        d2 = d * d
+        for a in (1, 2):
+            torch.sub(qs[a, :, :, None], cs[a, :, None, :], out=d)
+            d2 += d * d
+        ok = (d2 <= m2) & (qs[0, :, :, None] < REAL) \
+            & (cs[0, :, None, :] < REAL)
+        total += int(ok.sum())
+    return total
+
+
+def _grid_bound(torch, m2, cand, q, C, V):
+    """Kernel 1's bound on this panel: every node against its block's
+    candidates within the margin; the x, y, z and V value rows, the
+    queries and the output moved once."""
+    nb = cand.shape[1] // C
+    n_rows, _, Bt = q[0].shape
+    pairs = _pairs_within(torch, float(m2), cand[:3].view(3, nb, C),
+                          torch.stack(q).view(3, nb, n_rows // nb * Bt))
+    n_bytes = 4 * ((3 + V) * cand.shape[1] + 3 * n_rows * Bt
+                   + 8 * n_rows * Bt)
+    return _bound(pairs, n_bytes), pairs / (n_rows * Bt)
+
+
+def _check_tau2(torch, fg, args, what):
+    """Kernel 1's τ² output bit-equal to the plain bisection's; returns
+    the nodes that overflowed their shortlist and the node count."""
+    m2, cand, qx, qy, qz, block, sz, k, V, C = args[:10]
+    tau2 = torch.empty(qx.shape[0], qx.shape[2], device=cand.device)
+    fg._fused_eval(*args, tau2=tau2)
+    overflow = int(fg._fused_eval.last_overflow)
+    want = fg._fused_tau2_plain(m2, cand, qx, qy, qz, block, sz, k, C)
+    if not torch.equal(tau2, want):
+        n = int((tau2 != want).sum())
+        raise AssertionError(f"{what}: τ² differs from the plain version's "
+                             f"at {n} nodes")
+    log(f"  {what}: τ² bit-equal; {overflow} of {tau2.numel()} nodes "
+        f"overflowed their shortlist")
+    return overflow, tau2.numel()
+
+
 def _compare(torch, got, want, V, what):
     den_got, den_want = got[:, :, V], want[:, :, V]
     if not torch.equal(den_got == 0, den_want == 0):
@@ -172,8 +257,9 @@ def phase_kernel(torch, pts, vals, grid, k):
         args = (m2, cand, *q, BLOCK, sz, k, V, C, mode, 2.0)
         got, want = fg._fused_eval(*args), fg._fused_eval_plain(*args)
         torch.cuda.synchronize()
-        errs.append(_compare(torch, got, want, V,
-                             f"{mode}, {len(ids)} blocks incl. corners/edges"))
+        what = f"{mode}, {len(ids)} blocks incl. corners/edges"
+        errs.append(_compare(torch, got, want, V, what))
+        _check_tau2(torch, fg, args, what)
 
     cand = fg._compact_gather(cells, values_sorted, axes, margin, BLOCK,
                               grid.shape, mc, C)
@@ -184,8 +270,14 @@ def phase_kernel(torch, pts, vals, grid, k):
     got, want = fg._fused_eval(*args), fg._fused_eval_plain(*args)
     torch.cuda.synchronize()
     errs.append(_compare(torch, got, want, V, "sibson, full headline panel"))
-    log(f"  full panel, sibson: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max(errs), ms, plain_ms
+    overflow, n_nodes = _check_tau2(torch, fg, args,
+                                    "sibson, full headline panel")
+    (bound_ms, bound_by), per_node = _grid_bound(torch, m2, cand, q, C, V)
+    log(f"  full panel, sibson: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}; {per_node:.1f} candidates "
+        f"within the margin per node); shortlist overflow {overflow} of "
+        f"{n_nodes} nodes")
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def phase_main_path(torch, pts, vals, grid, k):
@@ -326,7 +418,6 @@ def phase_main_path(torch, pts, vals, grid, k):
 
 RAW_SHAPE = (486, 336, 322)        # raw mask (z, y, x); downscale 2 → 243×168×161
 N_TRACKS = 650_000
-MAD_RTOL, MAD_ATOL = 1e-6, 1e-7    # d², τ², bisection midpoints bit-equal
 PIPE_L2_LIMIT = 1e-6
 AGREE_LIMIT = 0.9999
 
@@ -386,28 +477,40 @@ def _filter_input(fluid, pts, vals):
     return PointCloud(pts[rows], vals[rows]), rows
 
 
-def _captured_mad_eval(torch, cloud, k):
+def _captured(module, name, fn):
+    """The positional arguments of the first call that ``fn()`` makes to
+    the kernel wrapper ``module.<name>``. The wrapper counts its launches
+    on its own function object, so the counts are carried across."""
+    seen = []
+    orig = getattr(module, name)
+
+    def grab(*a):
+        seen.append(a)
+        return orig(*a)
+
+    grab.__dict__.update(orig.__dict__)
+    setattr(module, name, grab)
+    try:
+        fn()
+    finally:
+        orig.__dict__.update(grab.__dict__)
+        setattr(module, name, orig)
+    if not seen:
+        raise AssertionError(f"{name} was not called")
+    return seen[0]
+
+
+def _captured_mad_eval(cloud, k):
     """The MAD kernel's inputs on this cloud, from one fused_mad_filter
     call on the card (its launch is not a main-path launch)."""
     from ptv_interpolation_tpu_torch.ops import fused_mad as fm
-    seen = {}
-    orig = fm._mad_eval
-
-    def grab(*a):
-        seen["args"] = a
-        return orig(*a)
-
-    grab.launches = orig.launches
-    fm._mad_eval = grab
-    try:
-        speed = np.sqrt((cloud.values ** 2).sum(axis=-1))
-        res = fm.fused_mad_filter(cloud.points, speed, k, 4.0, device="cuda")
-    finally:
-        orig.launches = grab.launches
-        fm._mad_eval = orig
-    if res is None:
+    speed = np.sqrt((cloud.values ** 2).sum(axis=-1))
+    res = []
+    args = _captured(fm, "_mad_eval", lambda: res.append(fm.fused_mad_filter(
+        cloud.points, speed, k, 4.0, device="cuda")))
+    if res[0] is None:
         raise AssertionError("fused_mad_filter declined the production panel")
-    return seen["args"]
+    return args
 
 
 def _compare_mad(torch, got, want, what):
@@ -417,16 +520,18 @@ def _compare_mad(torch, got, want, what):
     fin = torch.isfinite(want[:, 1])
     if not torch.equal(fin, torch.isfinite(got[:, 1])):
         raise AssertionError(f"{what}: padding (+inf) pattern differs")
+    if not torch.equal(got[:, 1:4], want[:, 1:4]):
+        n = int((got[:, 1:4] != want[:, 1:4]).sum())
+        raise AssertionError(f"{what}: rows 1-3 differ at {n} entries")
     g = torch.where(fin[:, None], got[:, 1:4], 0.0)
     w = torch.where(fin[:, None], want[:, 1:4], 0.0)
-    if not torch.allclose(g, w, rtol=MAD_RTOL, atol=MAD_ATOL):
-        bad = ~torch.isclose(g, w, rtol=MAD_RTOL, atol=MAD_ATOL)
-        raise AssertionError(f"{what}: {int(bad.sum())} of rows 1-3 outside "
-                             f"rtol {MAD_RTOL} atol {MAD_ATOL}")
     err = float((g - w).abs().max())
     n_unc = int(((got[:, 0] < 2) & fin).sum())
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    overflow = int(fm._mad_eval.last_overflow)
     log(f"  {what}: keep|covered identical ({n_unc} real slots uncovered), "
-        f"max |kernel - plain| on rows 1-3 = {err:.3e}")
+        f"rows 1-3 bit-equal; {overflow} of {int(fin.sum())} real queries "
+        f"overflowed their shortlist")
     return err
 
 
@@ -446,7 +551,7 @@ def phase_mad_kernel(torch, fluid, pts, vals, thr_idx, mad_idx):
     errs = []
     for k in (30, 25):
         m2, cand, qx, qy, qz, qs, kk, thr, Bt, C = _captured_mad_eval(
-            torch, cloud, k)
+            cloud, k)
         nb = cand.shape[1] // C
         if k == 30:
             log(f"  production panel: {nb} scatter blocks × Bt = {Bt} "
@@ -468,15 +573,30 @@ def phase_mad_kernel(torch, fluid, pts, vals, thr_idx, mad_idx):
         errs.append(_compare_mad(torch, got, want, f"k={k}, {len(ids)} blocks "
                                  f"with the 8 corners and "
                                  f"{len(outliers)} planted outliers"))
+        full = (m2, cand, qx, qy, qz, qs, kk, thr, Bt, C)
+        got, want = fm._mad_eval(*full), fm._mad_eval_plain(*full)
+        torch.cuda.synchronize()
+        errs.append(_compare_mad(torch, got, want,
+                                 f"k={k}, full production panel"))
         if k == 30:
-            full = (m2, cand, qx, qy, qz, qs, kk, thr, Bt, C)
+            full30 = full
+    full = full30
     ms = _cuda_ms(torch, lambda: fm._mad_eval(*full), reps=5)
     plain_ms = _cuda_ms(torch, lambda: fm._mad_eval_plain(*full), reps=1)
-    got, want = fm._mad_eval(*full), fm._mad_eval_plain(*full)
-    torch.cuda.synchronize()
-    errs.append(_compare_mad(torch, got, want, "k=30, full production panel"))
-    log(f"  full panel, k=30: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max(errs), ms, plain_ms
+    # the bound: every real query against the candidates within the
+    # margin; the panel, the queries (x, y, z, speed) and the output once
+    m2, cand, qx, qy, qz = full[:5]
+    Bt, C = full[8], full[9]
+    nb = cand.shape[1] // C
+    pairs = _pairs_within(torch, float(m2), cand[:3].view(3, nb, C),
+                          torch.stack([qx, qy, qz]).view(3, nb, Bt))
+    bound_ms, bound_by = _bound(pairs, 4 * (4 * nb * C + 4 * nb * Bt
+                                            + 8 * nb * Bt))
+    n_real = int((qx < REAL).sum())
+    log(f"  full panel, k=30: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}; {pairs / n_real:.1f} "
+        f"candidates within the margin per real query)")
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
@@ -632,6 +752,15 @@ PALLAS_ITERS = 14
 SLICE_BLOCKS = 1024                # the fixed slice both versions are timed on
 
 
+def _pallas_slice(full):
+    """Kernel 3's arguments over every block cut to the fixed slice of
+    SLICE_BLOCKS blocks from the middle of the grid."""
+    starts, ids = full[:2]
+    s0 = starts.shape[0] // 2
+    return (starts[s0:s0 + SLICE_BLOCKS].contiguous(),
+            ids[s0:s0 + SLICE_BLOCKS].contiguous()) + tuple(full[2:])
+
+
 def _compare_pallas(torch, got, want, what):
     """τ² (column 3) bit-equal; the values within RTOL/ATOL; nodes whose
     windows hold no point exactly 0 in both."""
@@ -692,24 +821,32 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
             f"corners/edges/{len(outside)} outside the cell grid"))
 
     # one fixed slice of blocks for both versions, then every block
-    s0 = n_blocks // 2
-    sl = torch.arange(s0, s0 + SLICE_BLOCKS, dtype=torch.int32, device=dev)
-    args = (starts[s0:s0 + SLICE_BLOCKS].contiguous(), sl, axes, store,
-            PALLAS_BLOCK, dims, L, k, "sibson", 2.0, PALLAS_ITERS)
+    all_ids = torch.arange(n_blocks, dtype=torch.int32, device=dev)
+    full = (starts, all_ids, axes, store, PALLAS_BLOCK, dims, L, k,
+            "sibson", 2.0, PALLAS_ITERS)
+    args = _pallas_slice(full)
     ms = _cuda_ms(torch, lambda: pg._pallas_eval(*args), reps=5)
     plain_ms = _cuda_ms(torch, lambda: pg._pallas_eval_plain(*args), reps=1)
     got, want = pg._pallas_eval(*args), pg._pallas_eval_plain(*args)
     torch.cuda.synchronize()
     errs.append(_compare_pallas(torch, got, want,
                                 f"sibson, slice of {SLICE_BLOCKS} blocks"))
+    # the slice's work: 128 nodes against every real point of its windows
+    # (each d² can move the bisection's upper bound, the farthest one);
+    # the store columns the windows cover (x, y, z, u, v, w), the starts
+    # and the output moved once
+    n_sl, R = args[0].shape
+    cols = (args[0].long()[:, :, None]
+            + torch.arange(L, device=dev)[None, None, :])     # (n, R, L)
+    real = int((store[0][cols] < 0.5 * pg._BIG).sum())
+    n_bytes = (4 * 6 * int(torch.unique(cols).numel()) + 4 * n_sl * R
+               + 4 * got.numel())
+    bound_ms, bound_by = _bound(real * int(np.prod(PALLAS_BLOCK)), n_bytes)
     log(f"  slice of {SLICE_BLOCKS} blocks, sibson: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    all_ids = torch.arange(n_blocks, dtype=torch.int32, device=dev)
-    full = (starts, all_ids, axes, store, PALLAS_BLOCK, dims, L, k,
-            "sibson", 2.0, PALLAS_ITERS)
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     full_ms = _cuda_ms(torch, lambda: pg._pallas_eval(*full), reps=2)
     log(f"  every block ({n_blocks}), sibson: kernel {full_ms:.3f} ms")
-    return max(errs), ms, plain_ms
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def _interior_l2(torch, out, pts, vals, grid, n_nodes=20_000, seed=1):
@@ -843,16 +980,18 @@ def main():
     phase_build()
     pts, vals = make_problem()
     grid = create_grid(((0, GRID_N + 1),) * 3, GRID_N)
-    max_err, ms, plain_ms = phase_kernel(torch, pts, vals, grid, K)
+    max_err, ms, plain_ms, bound_ms, bound_by = phase_kernel(
+        torch, pts, vals, grid, K)
     launches = phase_main_path(torch, pts, vals, grid, K)
     del pts, vals
     problem = make_pipeline_problem()
-    mad_err, mad_ms, mad_plain_ms = phase_mad_kernel(torch, *problem)
+    mad_err, mad_ms, mad_plain_ms, mad_bound_ms, mad_bound_by = \
+        phase_mad_kernel(torch, *problem)
     mad_launches, grid_launches = phase_pipeline(torch, *problem)
     del problem
     pts, vals = make_problem()
-    pl_err, pl_ms, pl_plain_ms = phase_pallas_kernel(torch, pts, vals, grid,
-                                                     K)
+    pl_err, pl_ms, pl_plain_ms, pl_bound_ms, pl_bound_by = \
+        phase_pallas_kernel(torch, pts, vals, grid, K)
     pl_launches = phase_pallas_path(torch, pts, vals, grid, K)
     del pts, vals
     phase_other_routes(torch, K)
@@ -869,6 +1008,9 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }, {
         "name": "fused_mad",
         "route": "cuda",
@@ -878,6 +1020,9 @@ def main():
         "max_abs_err": mad_err,
         "ms": mad_ms,
         "plain_ms": mad_plain_ms,
+        "bound_ms": mad_bound_ms,
+        "bound_by": mad_bound_by,
+        "library_ms": None,
     }, {
         "name": "pallas_grid_knn",
         "route": "cuda",
@@ -887,6 +1032,9 @@ def main():
         "max_abs_err": pl_err,
         "ms": pl_ms,
         "plain_ms": pl_plain_ms,
+        "bound_ms": pl_bound_ms,
+        "bound_by": pl_bound_by,
+        "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,8 @@ _CHUNK_ELEMS = 1 << 24    # bound on (blocks × C) index intermediates
 _PLAIN_ELEMS = 1 << 26    # bound on (rows × Bt × C) panels of the plain eval
 _MODES = {"idw": 0, "sibson": 1}
 _NBLK_MAX = 4096
+_SMEM_BYTES = 232448      # dynamic shared memory one CTA may use on sm_90
+_LIST_SLACK = 32          # shortlist entries planned beyond the count target
 
 
 # ---------------------------------------------------------------------------
@@ -183,18 +185,36 @@ def _kernel_lib():
     from ptv_interpolation_tpu_torch.ops.cuda_build import load_library
     lib = load_library("fused_grid_knn")
     lib.fused_grid_knn_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_grid_knn_launch.restype = ctypes.c_int
     lib.fused_grid_knn_error_string.argtypes = [ctypes.c_int]
     lib.fused_grid_knn_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _shortlist_plan(C: int, threads: int, need: int,
+                    boxes: bool = False) -> Tuple[int, int]:
+    """Shared-memory plan of one CTA of the grid or MAD kernel: ``threads``
+    threads over a panel of C slots (16·C bytes, and with ``boxes`` the
+    grid kernel's 32-byte bounding box per 32 slots), whose τ bisection
+    targets a count of ``need`` (k for the grid kernel, k+1 for the MAD
+    kernel). Returns ``(S, bytes)``: S u16 shortlist entries per thread
+    (need + 32), or S = 0 where the lists do not fit beside the panel
+    (every thread then runs over the whole panel), and the dynamic shared
+    memory the launch asks for."""
+    panel = 16 * C + (32 * -(-C // 32) if boxes else 0)
+    S = need + _LIST_SLACK
+    if panel + 2 * S * threads > _SMEM_BYTES:
+        S = 0
+    return S, panel + 2 * S * threads
+
+
 def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                 qy_all: torch.Tensor, qz_all: torch.Tensor,
                 block: Tuple[int, int, int], sz: int, k: int, V: int, C: int,
-                mode: str, power: float) -> torch.Tensor:
+                mode: str, power: float,
+                tau2: torch.Tensor | None = None) -> torch.Tensor:
     """Phase 2 over every (block, sub-tile) row: returns (n_blocks, n_sub,
     8, Bt) f32 with rows ``out[c] = Σw·v_c / max(Σw, 1e-37)`` for the V
     channels, ``out[V] = Σw`` where the node is covered (≥ k candidates
@@ -204,8 +224,11 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
     ``cand`` is the (8, n_blocks·C) panel of :func:`_compact_gather`,
     ``q*_all`` the (n_blocks·n_sub, 1, Bt) rows of :func:`_build_queries`.
     On CUDA tensors this launches the kernel (and counts the launch in
-    ``_fused_eval.launches``); on CPU tensors it runs
-    :func:`_fused_eval_plain`."""
+    ``_fused_eval.launches``; ``_fused_eval.last_overflow`` is then a
+    one-int device tensor, the number of nodes whose shortlist did not fit
+    and which ran over the whole panel); on CPU tensors it runs
+    :func:`_fused_eval_plain`. ``tau2`` (optional, (n_blocks·n_sub, Bt)
+    f32, contiguous, on cand's device) receives every node's τ²."""
     bz, by, bx = block
     n_sub = bz // sz
     Bt = sz * by * bx
@@ -225,7 +248,16 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                              f"float32, got {tuple(q.shape)} {q.dtype}")
         if q.device != cand.device:
             raise ValueError("cand and queries must be on one device")
+    if tau2 is not None and (
+            tau2.dtype != torch.float32 or tuple(tau2.shape) != (
+                n_blocks * n_sub, Bt) or tau2.device != cand.device
+            or not tau2.is_contiguous()):
+        raise ValueError(f"tau2 must be a contiguous ({n_blocks * n_sub}, "
+                         f"{Bt}) float32 tensor on {cand.device}")
     if cand.device.type == "cpu":
+        if tau2 is not None:
+            tau2.copy_(_fused_tau2_plain(m2, cand, qx_all, qy_all, qz_all,
+                                         block, sz, k, C))
         return _fused_eval_plain(m2, cand, qx_all, qy_all, qz_all, block, sz,
                                  k, V, C, mode, power)
     if cand.device.type != "cuda":
@@ -234,29 +266,73 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
         raise ValueError("cand and queries must be contiguous")
     if Bt > 1024:
         raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
-    if 16 * C > 232448:
+    S, smem = _shortlist_plan(C, Bt, int(k), boxes=True)
+    if smem > _SMEM_BYTES:
         raise ValueError(f"panel width C={C} exceeds the kernel's shared "
-                         f"memory (16·C bytes ≤ 227 KB)")
+                         f"memory (17·C bytes ≤ 227 KB)")
     lib = _kernel_lib()
     out = torch.empty((n_blocks, n_sub, 8, Bt), dtype=torch.float32,
                       device=cand.device)
     if n_blocks == 0:
         return out
+    overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
     with torch.cuda.device(cand.device):
         stream = torch.cuda.current_stream(cand.device).cuda_stream
         err = lib.fused_grid_knn_launch(
             cand.data_ptr(), qx_all.data_ptr(), qy_all.data_ptr(),
-            qz_all.data_ptr(), out.data_ptr(), n_blocks, C, n_sub, Bt,
-            int(k), V, _MODES[mode], float(power), float(m2), stream)
+            qz_all.data_ptr(), out.data_ptr(),
+            None if tau2 is None else tau2.data_ptr(), overflow.data_ptr(),
+            n_blocks, C, n_sub, Bt, int(k), V, _MODES[mode], float(power),
+            float(m2), S, stream)
     if err != 0:
         msg = lib.fused_grid_knn_error_string(err).decode()
         raise RuntimeError(f"fused_grid_knn kernel launch failed: {msg} "
                            f"(cudaError {err})")
     _fused_eval.launches += 1
+    _fused_eval.last_overflow = overflow
     return out
 
 
 _fused_eval.launches = 0
+_fused_eval.last_overflow = None
+
+
+def _fused_tau2_plain(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
+                      qy_all: torch.Tensor, qz_all: torch.Tensor,
+                      block: Tuple[int, int, int], sz: int, k: int,
+                      C: int) -> torch.Tensor:
+    """Every node's τ² as :func:`_fused_eval_plain` forms it (the same d²
+    and halvings, in the same f32 op order): (n_blocks·n_sub, Bt) f32. The
+    kernel's τ² output is held bit-equal to it."""
+    bz, by, bx = block
+    n_sub = bz // sz
+    Bt = sz * by * bx
+    n_blocks = cand.shape[1] // C
+    n_rows = n_blocks * n_sub
+    panel = cand.view(8, n_blocks, C)
+    m2 = torch.tensor(np.float32(m2), device=cand.device)
+    out = cand.new_zeros((n_rows, Bt))
+    step = max(1, _PLAIN_ELEMS // (Bt * C))
+    for r0 in range(0, n_rows, step):
+        r1 = min(r0 + step, n_rows)
+        blk = torch.arange(r0, r1, device=cand.device) // n_sub
+        c = panel[:3, blk]                                  # (3, r, C)
+        q = [a[r0:r1].transpose(1, 2) for a in (qx_all, qy_all, qz_all)]
+        d = q[0] - c[0][:, None, :]
+        d2 = d * d
+        d = q[1] - c[1][:, None, :]
+        d2 = d2 + d * d
+        d = q[2] - c[2][:, None, :]
+        d2 = d2 + d * d                                     # (r, Bt, C)
+        lo = torch.zeros_like(d2[..., :1])
+        hi = torch.full_like(lo, float(m2))
+        for _ in range(_BISECT_ITERS):
+            mid = 0.5 * (lo + hi)
+            short = (d2 <= mid).sum(dim=-1, keepdim=True) < k
+            lo = torch.where(short, mid, lo)
+            hi = torch.where(short, hi, mid)
+        out[r0:r1] = hi[..., 0]
+    return out
 
 
 def _fused_eval_plain(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,

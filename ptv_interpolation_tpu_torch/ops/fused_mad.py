@@ -39,7 +39,9 @@ import numpy as np
 import torch
 
 from ptv_interpolation_tpu_torch.device import resolve_device
-from ptv_interpolation_tpu_torch.ops.fused_grid_knn import _compact_rows
+from ptv_interpolation_tpu_torch.ops.fused_grid_knn import (_SMEM_BYTES,
+                                                          _compact_rows,
+                                                          _shortlist_plan)
 from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
                                                        build_cell_list,
                                                        cell_meta_np)
@@ -135,8 +137,8 @@ def _kernel_lib():
     from ptv_interpolation_tpu_torch.ops.cuda_build import load_library
     lib = load_library("fused_mad")
     lib.fused_mad_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_mad_launch.restype = ctypes.c_int
     lib.fused_mad_error_string.argtypes = [ctypes.c_int]
     lib.fused_mad_error_string.restype = ctypes.c_char_p
@@ -158,8 +160,11 @@ def _mad_eval(m2: float, cand: torch.Tensor, qx: torch.Tensor,
 
     ``cand`` is the (4, n_blocks·C) panel [x, y, z, speed]; ``q*`` the
     (n_blocks, 1, Bt) query rows. On CUDA tensors this launches the
-    kernel (and counts the launch in ``_mad_eval.launches``); on CPU
-    tensors it runs :func:`_mad_eval_plain`."""
+    kernel (and counts the launch in ``_mad_eval.launches``;
+    ``_mad_eval.last_overflow`` is then a one-int device tensor, the number
+    of real (not padding) queries whose shortlist did not fit and which
+    ran over the whole panel); on CPU tensors it runs
+    :func:`_mad_eval_plain`."""
     if cand.dtype != torch.float32 or cand.dim() != 2 or cand.shape[0] != 4 \
             or C <= 0 or cand.shape[1] % C:
         raise ValueError(f"cand must be (4, n_blocks*{C}) float32, got "
@@ -179,7 +184,9 @@ def _mad_eval(m2: float, cand: torch.Tensor, qx: torch.Tensor,
         raise ValueError(f"unsupported device {cand.device}")
     if not all(t.is_contiguous() for t in (cand, qx, qy, qz, qs)):
         raise ValueError("cand and queries must be contiguous")
-    if 16 * C > 232448:
+    sub = min(Bt, _SUB_TILE)
+    S, smem = _shortlist_plan(C, sub, int(k) + 1)
+    if smem > _SMEM_BYTES:
         raise ValueError(f"panel width C={C} exceeds the kernel's shared "
                          f"memory (16·C bytes ≤ 227 KB)")
     lib = _kernel_lib()
@@ -187,22 +194,24 @@ def _mad_eval(m2: float, cand: torch.Tensor, qx: torch.Tensor,
                       device=cand.device)
     if n_blocks == 0:
         return out
-    sub = min(Bt, _SUB_TILE)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
     with torch.cuda.device(cand.device):
         stream = torch.cuda.current_stream(cand.device).cuda_stream
         err = lib.fused_mad_launch(
             cand.data_ptr(), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
-            qs.data_ptr(), out.data_ptr(), n_blocks, C, Bt, sub, int(k),
-            float(threshold), float(m2), stream)
+            qs.data_ptr(), out.data_ptr(), overflow.data_ptr(), n_blocks, C,
+            Bt, sub, int(k), float(threshold), float(m2), S, stream)
     if err != 0:
         msg = lib.fused_mad_error_string(err).decode()
         raise RuntimeError(f"fused_mad kernel launch failed: {msg} "
                            f"(cudaError {err})")
     _mad_eval.launches += 1
+    _mad_eval.last_overflow = overflow
     return out
 
 
 _mad_eval.launches = 0
+_mad_eval.last_overflow = None
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:

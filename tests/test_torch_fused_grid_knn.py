@@ -236,3 +236,55 @@ def test_fused_eval_input_checks():
     qm = torch.zeros((2, 1, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfg._fused_eval(1.0, meta, qm, qm, qm, block, sz, 4, 3, C, "idw", 2.0)
+
+
+@pytest.mark.parametrize("C", [128, 1920, 4608, 8192])
+@pytest.mark.parametrize("k", [1, 30, 50, 300])
+def test_shortlist_plan_fits_shared_memory(C, k):
+    """Both kernels' shared-memory plans (256 threads; the grid kernel
+    counts to k and keeps a box per 32 slots, the MAD kernel counts to
+    k+1) stay within the 232 448 bytes a CTA may use, and keep the
+    shortlists wherever they fit."""
+    for need, boxes in ((k, True), (k + 1, False)):
+        S, smem = tfg._shortlist_plan(C, 256, need, boxes=boxes)
+        panel = 16 * C + (C if boxes else 0)     # C is a multiple of 32
+        assert smem <= 232448
+        assert smem == panel + 2 * S * 256
+        fits = panel + 2 * (need + 32) * 256 <= 232448
+        assert S == (need + 32 if fits else 0)
+    assert tfg._shortlist_plan(1920, 256, 50, boxes=True) == (
+        82, 17 * 1920 + 41984)
+    assert tfg._shortlist_plan(8192, 256, 300, boxes=True)[0] == 0
+    assert tfg._shortlist_plan(4608, 256, 31) == (63, 16 * 4608 + 32256)
+
+
+@pytest.mark.parametrize("block", [(2, 4, 8), (4, 4, 8)])
+def test_fused_eval_tau2_is_the_bisected_kth_distance(block):
+    """The τ² output on the CPU: for every covered node within one halving
+    step above the exact k-th smallest d² (the 24 halvings of [0, m2]
+    bracket it), and below it nowhere."""
+    k = 10
+    s = _jax_setup(fx.corner_slab(), k, block)
+    cand, q = _jax_panel(s, block)
+    m2 = np.float32(s["margin"] * s["margin"])
+    cand, q = _torch(cand), [_torch(a) for a in q]
+    Bt = q[0].shape[2]
+    tau2 = torch.empty((q[0].shape[0], Bt), dtype=torch.float32)
+    out = tfg._fused_eval(m2, cand, *q, block, s["sz"], k, s["V"], s["C"],
+                          "idw", 2.0, tau2=tau2)
+    want = tfg._fused_eval_plain(m2, cand, *q, block, s["sz"], k, s["V"],
+                                 s["C"], "idw", 2.0)
+    assert torch.equal(out, want)
+    n_sub = block[0] // s["sz"]
+    panel = cand.view(8, -1, s["C"])[:3].repeat_interleave(n_sub, dim=1)
+    d2 = sum((q[a].transpose(1, 2) - panel[a][:, None, :]) ** 2
+             for a in range(3))                              # (rows, Bt, C)
+    kth = torch.kthvalue(d2, k, dim=-1).values
+    covered = (d2 <= float(m2)).sum(dim=-1) >= k
+    step = 1.01 * float(m2) * 2.0 ** -24
+    assert bool(covered.any()) and not bool(covered.all())
+    assert bool((tau2[covered] >= kth[covered] * (1 - 1e-6)).all())
+    assert bool((tau2[covered] <= kth[covered] * (1 + 1e-6) + step).all())
+    with pytest.raises(ValueError, match="tau2"):
+        tfg._fused_eval(m2, cand, *q, block, s["sz"], k, s["V"], s["C"],
+                        "idw", 2.0, tau2=tau2[:, :-1])

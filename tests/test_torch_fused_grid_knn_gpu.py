@@ -34,13 +34,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _panel(cloud, block, k, device):
+def _panel(cloud, block, k, device, C=None):
+    """The kernel's inputs on ``cloud``; ``C`` widens the panel past the
+    largest block's candidate count (the extra slots are sentinels)."""
     pts, vals, bounds, n = cloud
     grid = create_grid(bounds, n)
     cells, vs, axes, margin, mc, _, _ = tgk._host_setup(
         pts, vals, grid, k, block, 1.45, cell_divisor=3.0, device=device)
-    C = tfg._panel_width(tfg._block_total_capacity(cells, axes, margin,
-                                                   block, grid.shape, mc))
+    C_raw = tfg._panel_width(tfg._block_total_capacity(cells, axes, margin,
+                                                       block, grid.shape, mc))
+    assert C is None or C >= C_raw
+    C = C_raw if C is None else C
     dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
     sz = tfg._pick_sz(*block)
     cand = tfg._compact_gather(cells, vs, axes, margin, block, grid.shape, mc,
@@ -96,3 +100,72 @@ def test_grid_slice_on_gpu_matches_cpu(cuda_device, cloud, mode):
     assert got.device.type == "cuda"
     want = entry(pts, vals, grid, device="cpu", **kw)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def _check_kernel(m2, cand, q, block, sz, k, C, mode):
+    """The kernel against its plain version: τ² bit-equal, den==0
+    identical, the values within RTOL/ATOL. Returns the number of nodes
+    that ran over the whole panel, and the node count."""
+    n_rows, _, Bt = q[0].shape
+    tau2 = torch.empty((n_rows, Bt), device=cand.device)
+    args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
+    got = tfg._fused_eval(*args, tau2=tau2)
+    overflow = int(tfg._fused_eval.last_overflow)
+    want = tfg._fused_eval_plain(*args)
+    want_tau2 = tfg._fused_tau2_plain(m2, cand, *q, block, sz, k, C)
+    torch.cuda.synchronize()
+    assert torch.equal(tau2, want_tau2)
+    assert torch.equal(got[:, :, 3] == 0, want[:, :, 3] == 0)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    return overflow, n_rows * Bt
+
+
+@pytest.mark.parametrize("mode,k", [("sibson", 10), ("idw", 10),
+                                    ("sibson", 1), ("idw", 1)])
+def test_fused_kernel_tau2_bit_equal_on_gpu(cuda_device, mode, k):
+    """Blocks with uncovered nodes (the corner slab), k = 10 and k = 1."""
+    block = (2, 4, 8)
+    m2, cand, q, sz, C = _panel(fx.corner_slab(), block, k, cuda_device)
+    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert overflow < n
+
+
+def _duplicated_cloud():
+    """A uniform cloud with one point copied 64 times onto a grid node
+    (more than the k + 32 entries a shortlist holds at k = 10; few enough
+    that the kernel's sequential f32 sum of their equal weights stays
+    within RTOL of the plain version's) and a 4³ lattice of points at
+    whole coordinates (tied distances)."""
+    pts, vals, bounds, n = fx.uniform()
+    lattice = np.stack(np.meshgrid(*[np.arange(4, 8)] * 3), -1).reshape(-1, 3)
+    extra = np.concatenate([np.repeat([[12.0, 12.0, 12.0]], 64, 0),
+                            lattice]).astype(np.float32)
+    extra_vals = np.ones((len(extra), 3), np.float32)
+    return (np.concatenate([pts, extra]), np.concatenate([vals, extra_vals]),
+            bounds, n)
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_fused_kernel_overflow_on_duplicates_on_gpu(cuda_device, mode):
+    """Nodes beside 64 coincident points count more than the shortlist
+    holds: they run over the whole panel with the same result."""
+    block, k = (2, 4, 8), 10
+    m2, cand, q, sz, C = _panel(_duplicated_cloud(), block, k, cuda_device)
+    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert 0 < overflow < n
+
+
+@pytest.mark.parametrize("k,block", [(10, (2, 4, 8)), (300, (8, 8, 16))])
+def test_fused_kernel_at_the_panel_cap_on_gpu(cuda_device, k, block):
+    """C = 8 192, the cap: at k = 10 the shortlists fit beside the panel;
+    at k = 300 with 256 threads they do not (S = 0), and every node runs
+    over the whole panel."""
+    C = 8192
+    m2, cand, q, sz, _ = _panel(fx.uniform(), block, k, cuda_device, C=C)
+    Bt = q[0].shape[2]
+    S = tfg._shortlist_plan(C, Bt, k, boxes=True)[0]
+    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
+    if k == 300:
+        assert S == 0 and overflow == n
+    else:
+        assert S == k + 32 and overflow < n

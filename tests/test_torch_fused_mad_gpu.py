@@ -178,3 +178,69 @@ def test_pipeline_gpu_matches_cpu(cuda_device, monkeypatch):
         np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-4,
                                    atol=1e-5)
         assert np.all(getattr(g, f)[~g.mask] == 0.0)
+
+
+def _check_mad(args):
+    """The kernel against its plain version on ``args``: keep|covered
+    identical and rows 1-3 (√τ², med, mad) bit-equal. Returns the number
+    of real queries that ran over the whole panel."""
+    got = tfm._mad_eval(*args)
+    overflow = int(tfm._mad_eval.last_overflow)
+    want = tfm._mad_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert torch.equal(got[:, 1:4], want[:, 1:4])
+    return overflow
+
+
+def _clustered_cloud(seed):
+    """4 000 uniform points and 100 copies of one of them."""
+    pts, vals = _cloud(4000, 30, seed)
+    pts = np.concatenate([pts, np.repeat(pts[:1], 100, 0)])
+    vals = np.concatenate([vals, np.repeat(vals[:1] * 1.1, 100, 0)])
+    return pts, vals
+
+
+@pytest.mark.parametrize("k", [1, 25, 30])
+@pytest.mark.parametrize("cloud", ["uniform", "clustered"])
+def test_mad_kernel_bit_equal_on_gpu(cuda_device, k, cloud):
+    """k = 1, odd and even k; the clustered cloud's 101 coincident points
+    overflow the shortlist (k1 + 32 entries) of the queries beside them."""
+    pts, vals = (_cloud(4000, 30, 3) if cloud == "uniform"
+                 else _clustered_cloud(3))
+    _, args, _ = _captured_eval(pts, _speed(vals), k, cuda_device)
+    overflow = _check_mad(args)
+    n_real = int((args[2] < 1e18).sum())
+    assert overflow < n_real
+    if cloud == "clustered":
+        assert overflow > 0
+
+
+def _widened(args, C_new):
+    """The same MAD panel padded with sentinel slots to C_new."""
+    m2, cand, qx, qy, qz, qs, k, thr, Bt, C = args
+    nb = cand.shape[1] // C
+    wide = torch.zeros((4, nb, C_new), device=cand.device)
+    wide[:3] = 1e19
+    wide[:, :, :C] = cand.view(4, nb, C)
+    return (m2, wide.reshape(4, -1), qx, qy, qz, qs, k, thr, Bt, C_new)
+
+
+@pytest.mark.parametrize("k", [30, 300])
+def test_mad_kernel_at_the_panel_cap_on_gpu(cuda_device, k):
+    """C = 8 192, the cap: at k = 30 the shortlists fit beside the panel;
+    at k = 300 they do not (S = 0), and every real query runs over the
+    whole panel with the same result."""
+    pts, vals = _cloud(4000, 30, 8)
+    _, args, _ = _captured_eval(pts, _speed(vals), 30, cuda_device)
+    args = _widened(args, 8192)
+    args = args[:6] + (k,) + args[7:]
+    Bt = args[8]
+    sub = min(Bt, tfm._SUB_TILE)
+    S = tfm._shortlist_plan(8192, sub, k + 1)[0]
+    overflow = _check_mad(args)
+    n_real = int((args[2] < 1e18).sum())      # padding slots are not counted
+    if k == 300:
+        assert S == 0 and overflow == n_real
+    else:
+        assert S == k + 33 and overflow < n_real
