@@ -7,7 +7,8 @@ never imports JAX. Phases, each printing its own lines; every failure raises
 and the script exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions; TF32 is switched off;
+   CUDA versions; TF32 is switched off and float32 matmul precision set
+   to "highest";
 2. build: the three kernels of ``ptv_interpolation_tpu_torch/ops/csrc/`` with
    ``nvcc``, one compiler per source, all started together (timed, counted
    as set-up);
@@ -51,7 +52,21 @@ and the script exits non-zero:
 9. the streaming path (``backend="xla"``) and the exact top-k gather path
    (``exact_topk=True``) at 125 000 points → 128³ (the headline's density),
    timed once each, with the repair ladder's stages and relative L2 against
-   f64 scipy on 20k interior nodes.
+   f64 scipy on 20k interior nodes;
+10. the production configuration: phase 6's problem through
+   ``run_pipeline(..., device="cuda")`` with the flags of
+   ``examples/porous_glass.py`` (``divergence_free=True``, variational
+   cleaning, λ = 200, ``iterations=5``) — one warm-up and 3 timed runs,
+   the stage walls with ``clean_divergence``, CG iterations, convergence,
+   mean |div| before and after, peak memory; checks that the field before
+   cleaning equals phase 6's, that Woodbury agrees with the direct 3n CG
+   oracle (relative L2 < 1e-4 per component), that a 12³ crop where fluid
+   meets solid agrees with a dense f64 solve of ``(I + λ D̃ᵀD̃) U = U0``,
+   that solid nodes are exactly 0 and every value finite; runs the
+   projection method once; and takes one more cleaning call apart (set-up,
+   CG iterations × ms, the shares of the S operator, V-cycle and dots with
+   a synchronisation between layers, launches and device busy time per
+   iteration).
 
 The second-to-last line of standard output is the kernels' JSON record
 (``ms``, ``plain_ms`` and ``bound_ms`` are the full panel for the first two
@@ -102,6 +117,7 @@ def phase_environment(torch):
         f"{torch.cuda.get_device_name(0)} × {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     return smi
 
 
@@ -424,11 +440,12 @@ AGREE_LIMIT = 0.9999
 
 def pipeline_config(**kw):
     from ptv_interpolation_tpu_torch.pipeline import PipelineConfig
-    return PipelineConfig(
+    fields = dict(
         method="sibson", sibson_neighbors=50, downscale=2.0,
         boundary_particles=True, boundary_sampling=50, boundary_thickness=2,
         filter_outliers=True, filter_neighbors=30, filter_threshold=4.0,
-        filter_max_speed=5.0, divergence_free=False, verbose=False, **kw)
+        filter_max_speed=5.0, divergence_free=False, verbose=False)
+    return PipelineConfig(**{**fields, **kw})
 
 
 def make_pipeline_problem(seed=0):
@@ -739,7 +756,7 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
         raise AssertionError("solid nodes are not exactly 0")
     if not all(np.isfinite(getattr(res, f)).all() for f in "uvw"):
         raise AssertionError("non-finite values in the field")
-    return (sum(n for n, _ in launches), sum(n for _, n in launches))
+    return (sum(n for n, _ in launches), sum(n for _, n in launches)), res
 
 
 # ---------------------------------------------------------------------------
@@ -966,6 +983,329 @@ def phase_other_routes(torch, k):
                                  f"{L2_LIMIT:.0e}")
 
 
+# ---------------------------------------------------------------------------
+# The production configuration: the pipeline with variational cleaning
+# (phase 10)
+# ---------------------------------------------------------------------------
+
+CLEAN_LAMBDA = 200.0               # examples/porous_glass.py
+DIRECT_L2_LIMIT = 1e-4             # Woodbury against the direct oracle
+CROP = 12                          # the f64 dense check's crop (12³)
+CROP_RTOL, CROP_ATOL = 2e-3, 2e-4
+
+
+def _np_operator_divergence(u, v, w, mask, dx, dy, dz):
+    """An f64 numpy copy of the 'operator' divergence (both solid faces 0,
+    own-cell value at the domain edges), over any leading batch axes."""
+    def face(vel, axis, h):
+        last = [slice(None)] * vel.ndim
+        first = list(last)
+        last[axis], first[axis] = -1, 0
+        f_next = np.where(np.roll(mask, -1, axis),
+                          (vel + np.roll(vel, -1, axis)) / 2.0, 0.0)
+        f_next[tuple(last)] = vel[tuple(last)]
+        f_prev = np.where(np.roll(mask, 1, axis),
+                          (vel + np.roll(vel, 1, axis)) / 2.0, 0.0)
+        f_prev[tuple(first)] = vel[tuple(first)]
+        return (f_next - f_prev) / h
+    return face(u, -1, dx) + face(v, -2, dy) + face(w, -3, dz)
+
+
+def _dense_variational_f64(u, v, w, mask, dx, dy, dz, lam):
+    """``(I + λ D̃ᵀD̃) U = U0`` solved densely in f64 on the fluid cells,
+    ``D̃`` probed one unit vector per fluid cell and component through
+    :func:`_np_operator_divergence`. Returns ``U`` at the fluid cells,
+    u then v then w."""
+    idx = np.argwhere(mask)
+    n = len(idx)
+    probes = np.zeros((n,) + mask.shape)
+    probes[np.arange(n), idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
+    zero = np.zeros_like(probes)
+    cols = []
+    for c in range(3):
+        fields = [zero, zero, zero]
+        fields[c] = probes
+        cols.append(_np_operator_divergence(*fields, mask, dx, dy, dz)[
+            :, mask].T)                                # (n rows, n columns)
+    D = np.concatenate(cols, axis=1)
+    rhs = np.concatenate([a[mask] for a in (u, v, w)]).astype(np.float64)
+    return np.linalg.solve(np.eye(3 * n) + lam * (D.T @ D), rhs), n
+
+
+def _crop_where_fluid_meets_solid(mask, size):
+    """Slices of the ``size``³ window (on a stride of ``size``/2) whose
+    fluid share is closest to 75%: fluid touching solid."""
+    step = size // 2
+    best = None
+    for z in range(0, mask.shape[0] - size + 1, step):
+        for y in range(0, mask.shape[1] - size + 1, step):
+            for x in range(0, mask.shape[2] - size + 1, step):
+                share = mask[z:z + size, y:y + size, x:x + size].mean()
+                if best is None or abs(share - 0.75) < best[0]:
+                    best = (abs(share - 0.75), (z, y, x))
+    z, y, x = best[1]
+    return (slice(z, z + size), slice(y, y + size), slice(x, x + size))
+
+
+def _crop_check(torch, u, v, w, mask, spacing, dev):
+    """The port's Woodbury solve (tol 1e-10) on a 12³ crop of the field,
+    treated as its own domain, against the dense f64 solve."""
+    from ptv_interpolation_tpu_torch import physics
+    sl = _crop_where_fluid_meets_solid(mask, CROP)
+    m = np.ascontiguousarray(mask[sl])
+    crop = [np.ascontiguousarray(a[sl]) * m for a in (u, v, w)]
+    t0 = time.perf_counter()
+    want, n = _dense_variational_f64(*crop, m, *spacing, CLEAN_LAMBDA)
+    dense_s = time.perf_counter() - t0
+    res = physics.clean_divergence_variational(
+        *crop, m, *spacing, lambda_reg=CLEAN_LAMBDA, tol=1e-10, device=dev)
+    mt = torch.as_tensor(m, device=dev)
+    got = np.concatenate([a[mt].cpu().numpy() for a in res[:3]])
+    err = np.abs(got - want)
+    ok = err <= CROP_ATOL + CROP_RTOL * np.abs(want)
+    log(f"  f64 dense check on the {CROP}³ crop at "
+        f"{tuple(s.start for s in sl)} ({n} fluid cells, D̃ {n} × {3 * n}, "
+        f"dense solve {dense_s:.2f} s): Woodbury tol 1e-10 in "
+        f"{res.cg_iterations} iterations, max |port − f64| = "
+        f"{err.max():.3e}, {int((~ok).sum())} of {3 * n} values outside "
+        f"rtol {CROP_RTOL} / atol {CROP_ATOL}")
+    if not ok.all():
+        raise AssertionError("the crop's Woodbury solve disagrees with the "
+                             "dense f64 solve")
+
+
+def _device_launches(torch, fn):
+    """``(launches, device_ms)``: the device operations (kernels, copies)
+    ``fn()`` issues and their summed device time, from ``torch.profiler``;
+    ``(None, None)`` when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in events)
+    if not n:
+        return None, None
+    return n, sum(e.self_device_time_total for e in events) / 1e3
+
+
+def _cleaning_breakdown(torch, u, v, w, mask, spacing, dev):
+    """One more Woodbury cleaning call taken apart: set-up (parity masks,
+    MG hierarchy, right-hand side) and the CG loop, timed plain; then the
+    same CG with a synchronisation around each layer, for the shares of
+    the S operator (``div_op``/``div_op_T``), the V-cycle and the dot
+    products; the launches of each layer and of one whole iteration, and
+    the device's busy share of an iteration (``torch.profiler``)."""
+    from ptv_interpolation_tpu_torch import physics
+    from ptv_interpolation_tpu_torch.ops import solvers
+    mask_t = torch.as_tensor(mask, device=dev)
+    maskf = mask_t.float()
+    example = tuple(torch.as_tensor(a, device=dev) * maskf for a in (u, v, w))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S, m_inv, div_op, div_op_T = physics._woodbury_operators(
+        mask_t, *spacing, CLEAN_LAMBDA)
+    b = div_op(example)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res = solvers.pcg(S, b, M_inv=m_inv, tol=1e-8, maxiter=2000)
+    torch.cuda.synchronize()
+    cg_ms = (time.perf_counter() - t0) * 1e3
+    its = max(res.iterations, 1)
+    per_iter = cg_ms / its
+    log(f"  breakdown of one more cleaning call: set-up {setup_ms:.2f} ms, "
+        f"CG {res.iterations} iterations × {per_iter:.3f} ms = "
+        f"{cg_ms:.1f} ms")
+
+    spent = {"S operator": 0.0, "V-cycle": 0.0, "dots": 0.0}
+
+    def synced(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    dot = solvers._dot
+    solvers._dot = synced("dots", dot)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers.pcg(synced("S operator", S), b,
+                    M_inv=synced("V-cycle", m_inv), tol=1e-8, maxiter=its)
+        torch.cuda.synchronize()
+        synced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        solvers._dot = dot
+    log(f"    with a synchronisation around each layer ({synced_ms:.1f} ms "
+        f"for the same {its} iterations): "
+        + ", ".join(f"{name} {ms / its:.3f} ms per iteration "
+                    f"({ms / synced_ms:.1%})" for name, ms in spent.items())
+        + f", the rest (vector updates, host work, the one read of rr) "
+        f"{(synced_ms - sum(spent.values())) / its:.3f} ms")
+
+    q = res.x
+    alpha = solvers._dot(q, q)
+    for name, fn, per in (("S operator", lambda: S(q), 1),
+                          ("V-cycle", lambda: m_inv(q), 1),
+                          ("dots", lambda: solvers._dot(q, q), 3),
+                          ("vector updates",
+                           lambda: solvers._axpy(alpha, q, q), 3)):
+        n, dev_ms = _device_launches(torch, fn)
+        log(f"    {name}: " + (f"{n * per} launches, device busy "
+                               f"{dev_ms * per:.3f} ms per iteration"
+                               if n else "launches not measured"))
+
+    def iterations(k):
+        return lambda: solvers.pcg(S, b, M_inv=m_inv, tol=1e-8, maxiter=k)
+
+    (n1, d1), (n3, d3) = (_device_launches(torch, iterations(k))
+                          for k in (1, 3))
+    if n1 and n3:
+        busy = (d3 - d1) / 2
+        log(f"    per CG iteration: {(n3 - n1) / 2:.0f} launches, device "
+            f"busy {busy:.3f} ms of {per_iter:.3f} ms ({busy / per_iter:.1%};"
+            f" idle {1 - busy / per_iter:.1%})")
+    else:
+        log("    per CG iteration: launches and device time not measured")
+
+
+def phase_cleaning(torch, fluid, pts, vals, uncleaned):
+    from ptv_interpolation_tpu_torch import physics, pipeline
+    from ptv_interpolation_tpu_torch.io import PointCloud
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    from ptv_interpolation_tpu_torch.utils import StageTimings
+    log("== 10. production configuration: run_pipeline with variational "
+        "cleaning on cuda")
+    config = pipeline_config(divergence_free=True,
+                             cleaning_method="variational",
+                             cleaning_lambda=CLEAN_LAMBDA, iterations=5)
+    cloud = PointCloud(pts, vals)
+    calls = []
+    variational = physics.clean_divergence_variational
+
+    def grab(*a, **kw):
+        calls.append((a, variational(*a, **kw)))
+        return calls[-1][1]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(config, cloud=cloud, mask_raw=fluid,
+                                    timings=timings, device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    physics.clean_divergence_variational = grab
+    try:
+        timings = StageTimings()
+        res, wall = run()
+        log(f"  warm-up run: {wall:.4f} s")
+        args = calls[0][0]
+        u0, v0, w0, mask = args[:4]
+        spacing = args[4:7]
+
+        # the field before cleaning is phase 6's (same inputs, same kernels)
+        for f in "uvw":
+            if not np.allclose(getattr(res, f + "_init"),
+                               getattr(uncleaned, f), rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{f}_init differs from phase 6's field")
+        log("  u_init, v_init, w_init equal phase 6's field (rtol 1e-5, "
+            "atol 1e-6)")
+
+        # Woodbury against the direct 3n CG oracle on the same U_init
+        direct = variational(u0, v0, w0, mask, *spacing,
+                             lambda_reg=CLEAN_LAMBDA, solver="direct",
+                             device="cuda")
+        rels = []
+        for f, d in zip("uvw", direct[:3]):
+            ref = d.cpu().numpy().astype(np.float64)
+            got = getattr(res, f).astype(np.float64)
+            rels.append(float(np.linalg.norm(got - ref)
+                              / np.linalg.norm(ref)))
+        log(f"  Woodbury ({calls[0][1].cg_iterations} iterations) against "
+            f"the direct oracle ({direct.cg_iterations} iterations, "
+            f"converged {direct.converged}): relative L2 u {rels[0]:.3e}, "
+            f"v {rels[1]:.3e}, w {rels[2]:.3e} (limit {DIRECT_L2_LIMIT:.0e})")
+        if not (direct.converged and max(rels) < DIRECT_L2_LIMIT):
+            raise AssertionError("Woodbury disagrees with the direct oracle")
+        del direct
+        torch.cuda.empty_cache()
+
+        walls, launches, all_stages = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            timings = StageTimings()
+            fm._mad_eval.launches = 0
+            fg._fused_eval.launches = 0
+            res, wall = run()
+            walls.append(wall)
+            launches.append((fm._mad_eval.launches, fg._fused_eval.launches))
+            all_stages.append(dict(timings.stages))
+            log(f"  run {i + 1}: {wall:.4f} s; launches: fused_mad "
+                f"{launches[-1][0]}, fused_grid_knn {launches[-1][1]}; "
+                + ", ".join(f"{n} {t:.4f}"
+                            for n, t in timings.stages.items()))
+            if min(launches[-1]) <= 0:
+                raise AssertionError("the pipeline run did not launch both "
+                                     "kernels")
+    finally:
+        physics.clean_divergence_variational = variational
+    peak = torch.cuda.max_memory_allocated()
+    clean = calls[-1][1]
+    init, final = (float(clean.mean_abs_div_initial),
+                   float(clean.mean_abs_div_final))
+    med_run = int(np.argsort(walls)[1])
+    log(f"  median wall {float(np.median(walls)):.4f} s (stages of that run: "
+        + ", ".join(f"{n} {t:.4f}" for n, t in all_stages[med_run].items())
+        + f"); peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  cleaning: {clean.cg_iterations} CG iterations, converged "
+        f"{clean.converged}; mean |div| {init:.6e} → {final:.6e}, "
+        f"reduction {init / final:.2f}x")
+    if not clean.converged or not init / final > 1:
+        raise AssertionError("the cleaning did not converge or did not "
+                             "reduce the divergence")
+    solid = ~res.mask
+    n_bad = sum(int(np.count_nonzero(getattr(res, f)[solid]))
+                for f in ("u", "v", "w", "u_init", "v_init", "w_init"))
+    if n_bad or not all(np.isfinite(getattr(res, f)).all() for f in
+                        ("u", "v", "w", "u_init", "v_init", "w_init")):
+        raise AssertionError(f"{n_bad} nonzero solid values, or non-finite "
+                             f"values, in the cleaned result")
+    log(f"  solid: {int(solid.sum())} nodes, 0 nonzero values in u, v, w "
+        f"and u_init, v_init, w_init; every value finite")
+
+    _crop_check(torch, u0, v0, w0, mask, spacing, "cuda")
+
+    # the projection method once, MG-preconditioned, on the same field
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proj = physics.clean_divergence_projection(u0, v0, w0, mask, *spacing,
+                                               iterations=3, device="cuda")
+    torch.cuda.synchronize()
+    p_init, p_final = (float(proj.mean_abs_div_initial),
+                       float(proj.mean_abs_div_final))
+    log(f"  projection (3 loops, MG-PCG): {proj.cg_iterations} CG "
+        f"iterations, converged {proj.converged}, {time.perf_counter() - t0:.3f}"
+        f" s; mean |div| {p_init:.6e} → {p_final:.6e}, reduction "
+        f"{p_init / p_final:.2f}x")
+    if not p_init / p_final > 1:
+        raise AssertionError("projection cleaning did not reduce the "
+                             "divergence")
+    del proj
+
+    _cleaning_breakdown(torch, u0, v0, w0, mask, spacing, "cuda")
+    return (sum(n for n, _ in launches), sum(n for _, n in launches))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -987,16 +1327,20 @@ def main():
     problem = make_pipeline_problem()
     mad_err, mad_ms, mad_plain_ms, mad_bound_ms, mad_bound_by = \
         phase_mad_kernel(torch, *problem)
-    mad_launches, grid_launches = phase_pipeline(torch, *problem)
-    del problem
+    (mad_launches, grid_launches), uncleaned = phase_pipeline(torch,
+                                                              *problem)
     pts, vals = make_problem()
     pl_err, pl_ms, pl_plain_ms, pl_bound_ms, pl_bound_by = \
         phase_pallas_kernel(torch, pts, vals, grid, K)
     pl_launches = phase_pallas_path(torch, pts, vals, grid, K)
     del pts, vals
     phase_other_routes(torch, K)
+    fluid, pts, vals = problem[:3]
+    clean_mad, clean_grid = phase_cleaning(torch, fluid, pts, vals, uncleaned)
+    del problem, fluid, pts, vals, uncleaned
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
-        f"(phase 6); fused_mad {mad_launches} (phase 6); pallas_grid_knn "
+        f"(phase 6) + {clean_grid} (phase 10); fused_mad {mad_launches} "
+        f"(phase 6) + {clean_mad} (phase 10); pallas_grid_knn "
         f"{pl_launches} (phase 8)")
 
     log(json.dumps({"kernels": [{
@@ -1004,7 +1348,7 @@ def main():
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_grid_knn.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_grid_knn.py:175",
-        "launches": launches + grid_launches,
+        "launches": launches + grid_launches + clean_grid,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1016,7 +1360,7 @@ def main():
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_mad.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_mad.py:93",
-        "launches": mad_launches,
+        "launches": mad_launches + clean_mad,
         "max_abs_err": mad_err,
         "ms": mad_ms,
         "plain_ms": mad_plain_ms,

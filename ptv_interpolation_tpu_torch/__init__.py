@@ -2,15 +2,21 @@
 
 Module paths and function names mirror the JAX package, which stays the
 reference the port is tested against. This package imports ``torch`` and
-numpy and never ``jax``. Ported so far: the grid interpolation path
-(sibson/IDW onto a regular grid) and the production pipeline up to
-divergence cleaning (``pipeline.run_pipeline``: load, domain clip,
-threshold and kNN-MAD outlier filters, mask resample, boundary particles,
-interpolation, solid zeroing, NPZ/TIFF artifacts).
+numpy and never ``jax``. Ported so far: the grid interpolation routes
+(sibson/IDW onto a regular grid), the outlier filters, divergence cleaning
+and Poisson solves (``physics``: projection and variational cleaning on
+the stencils, CG and multigrid of ``ops``), and the production pipeline
+end to end (``pipeline.run_pipeline``: load, domain clip, threshold and
+kNN-MAD outlier filters, mask resample, boundary particles, interpolation,
+solid zeroing, divergence cleaning, NPZ/TIFF artifacts). As in the JAX
+package, the cleaning entry points are reached through the ``physics``
+module.
 
-Two hand-written CUDA kernels, built with ``nvcc`` at first use:
-``ops/csrc/fused_grid_knn.cu`` (the grid kNN τ-bisection weighted sums)
-and ``ops/csrc/fused_mad.cu`` (the kNN-MAD filter's statistics).
+Three hand-written CUDA kernels, built with ``nvcc`` at first use:
+``ops/csrc/fused_grid_knn.cu`` (the grid kNN τ-bisection weighted sums),
+``ops/csrc/fused_mad.cu`` (the kNN-MAD filter's statistics) and
+``ops/csrc/pallas_grid_knn.cu`` (the one-phase kernel of
+``backend='pallas'``). Cleaning runs as PyTorch ops.
 """
 
 from ptv_interpolation_tpu_torch.grid import (

@@ -1,11 +1,11 @@
 """End-to-end interpolation pipeline on one device.
 
-Counterpart of ``ptv_interpolation_tpu/pipeline.py``, stages 1–7 and 9:
+Counterpart of ``ptv_interpolation_tpu/pipeline.py``, stage for stage:
 CSV load → alignment transforms → mask load/crop → domain and outlier
 filtering → grid construction → boundary particles → interpolation →
-mask zeroing → NPZ/TIFF artifacts. Divergence cleaning (stage 8) is not
-ported yet (ROADMAP Queue 1 item 8), and of the interpolation methods
-only ``sibson`` and ``idw`` are; the config's other choices raise
+mask zeroing → divergence cleaning (``divergence_free``, projection or
+variational) → NPZ/TIFF artifacts. Of the interpolation methods only
+``sibson`` and ``idw`` are ported; the config's other choices raise
 ``NotImplementedError`` before any work starts.
 
 Host code handles I/O and the dynamic-shape compactions (the cloud is a
@@ -31,6 +31,7 @@ from ptv_interpolation_tpu_torch.interpolate.dispatch import (
 from ptv_interpolation_tpu_torch.io import (FieldResult, PointCloud,
                                             load_mask, load_ptv_data,
                                             save_field_npz, save_field_tiff)
+from ptv_interpolation_tpu_torch.physics import clean_divergence
 
 
 @dataclasses.dataclass
@@ -138,10 +139,6 @@ def run_pipeline(config: PipelineConfig,
     ``torch.profiler`` trace written there."""
     from ptv_interpolation_tpu_torch.utils import StageTimings, profiler_trace
 
-    if config.divergence_free:
-        raise NotImplementedError(
-            "divergence_free=True: divergence cleaning is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
     if config.method not in _PORTED_METHODS:
         raise NotImplementedError(
             f"method={config.method!r} is not ported yet (ported: idw, "
@@ -253,8 +250,24 @@ def _run_pipeline_stages(config: PipelineConfig, cloud, mask_raw, timings,
         V[solid] = 0
         W[solid] = 0
 
+    # 8. divergence cleaning; the result keeps the field before it
+    U_init = V_init = W_init = None
+    if config.divergence_free:
+        U_init, V_init, W_init = U.copy(), V.copy(), W.copy()
+        if v:
+            print(f"Applying divergence cleaning ({config.cleaning_method})...")
+        dx, dy, dz = grid.spacing
+        clean_mask = mask if mask_raw is not None else np.ones(grid.shape, bool)
+        with T("clean_divergence"):
+            U, V, W = (a.cpu().numpy() for a in clean_divergence(
+                U, V, W, clean_mask, dx, dy, dz,
+                iterations=config.iterations,
+                method=config.cleaning_method,
+                lambda_reg=config.cleaning_lambda, verbose=v, device=dev))
+
     result = FieldResult(x=grid.x, y=grid.y, z=grid.z, u=U, v=V, w=W,
-                         mask=mask)
+                         mask=mask, u_init=U_init, v_init=V_init,
+                         w_init=W_init)
 
     # 9. artifacts
     if config.output_npz:

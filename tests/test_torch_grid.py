@@ -50,8 +50,8 @@ def test_resolve_device_policy():
 
 def test_port_never_imports_jax():
     """Importing the port and running its slices end to end (the grid
-    entry points and the pipeline) leaves every ``jax`` module out of
-    ``sys.modules``."""
+    entry points and the pipeline with variational cleaning) leaves every
+    ``jax`` module out of ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -59,6 +59,7 @@ def test_port_never_imports_jax():
         torch.set_num_threads(1)
         import ptv_interpolation_tpu_torch
         import ptv_interpolation_tpu_torch.convert
+        import ptv_interpolation_tpu_torch.physics
         from ptv_interpolation_tpu_torch.interpolate import (
             idw_grid_interpolate, sibson_grid_interpolate)
         rng = np.random.default_rng(0)
@@ -78,9 +79,11 @@ def test_port_never_imports_jax():
         res = run_pipeline(
             PipelineConfig(method="idw", idw_neighbors=8, filter_outliers=True,
                            filter_neighbors=10, boundary_particles=True,
-                           verbose=False),
+                           divergence_free=True,
+                           cleaning_method="variational", verbose=False),
             cloud=PointCloud(pts, vals), mask_raw=fluid, device="cpu")
         assert np.isfinite(res.u).all() and (res.u[~res.mask] == 0).all()
+        assert res.has_dual
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
         print("JAX_MODULES", loaded)

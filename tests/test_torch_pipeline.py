@@ -1,6 +1,6 @@
 """The port's ``run_pipeline`` against the JAX package's on the sphere-pack
 dataset of ``tests/test_pipeline_e2e.py``: sibson, outlier filter on,
-boundary particles, no cleaning."""
+boundary particles, without and with divergence cleaning."""
 
 import functools
 import io
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_fixtures as fx
 from ptv_interpolation_tpu.datasets import sphere_pack
 from ptv_interpolation_tpu.io import load_velocity_field as jax_load_field
 from ptv_interpolation_tpu.io.csvio import load_ptv_data as jax_load_csv
@@ -158,17 +159,72 @@ def test_fused_routes_decide_as_the_exact_routes(dataset, monkeypatch):
                                    rtol=0, atol=1e-5)
 
 
+def _cleaning_report(lines):
+    """The cleaning stage's printed lines, from its announcement to the
+    report's closing rule."""
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith("Applying divergence cleaning"))
+    end = max(i for i, line in enumerate(lines) if line.startswith("===="))
+    return lines[start:end + 1]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cleaned(csv, tif, method):
+    out = []
+    lines = fx.printed_lines(lambda: out.append(jax_run_pipeline(
+        _cleaning_config(JaxConfig, csv, tif, method))))
+    return out[0], _cleaning_report(lines)
+
+
+def _cleaning_config(cls, csv, tif, method, **kw):
+    return _config(cls, csv, tif, divergence_free=True,
+                   cleaning_method=method, cleaning_lambda=200.0,
+                   iterations=2, **kw)
+
+
+@pytest.mark.parametrize("method", ["projection", "variational"])
+def test_run_pipeline_with_cleaning_matches_jax(dataset, method):
+    """``divergence_free=True``: the field before cleaning (``u_init…``)
+    within rtol 1e-5 / atol 1e-6 of the JAX package's, the cleaned field
+    within 1e-5 relative L2, the verbose cleaning report line for line,
+    the ``clean_divergence`` stage timed, solid nodes exactly 0, and the
+    NPZ holding both fields."""
+    d, csv, tif = dataset
+    npz = str(d / f"clean_{method}.npz")
+    want, want_report = _jax_cleaned(csv, tif, method)
+    timings = StageTimings()
+    out = []
+    lines = fx.printed_lines(lambda: out.append(run_pipeline(
+        _cleaning_config(PipelineConfig, csv, tif, method, output_npz=npz),
+        timings=timings, device="cpu")))
+    got = out[0]
+    fx.assert_reports_match(_cleaning_report(lines), want_report)
+    assert "clean_divergence" in timings.stages
+    assert got.has_dual and want.has_dual
+    for f in ("u", "v", "w"):
+        np.testing.assert_allclose(getattr(got, f + "_init"),
+                                   getattr(want, f + "_init"),
+                                   rtol=RTOL, atol=ATOL)
+        g, w = (getattr(r, f).astype(np.float64) for r in (got, want))
+        assert np.linalg.norm(g - w) <= 1e-5 * np.linalg.norm(w)
+    solid = ~got.mask
+    for f in ("u", "v", "w", "u_init", "v_init", "w_init"):
+        assert np.all(getattr(got, f)[solid] == 0.0)
+        assert np.isfinite(getattr(got, f)).all()
+    back = jax_load_field(npz)
+    assert back.has_dual
+    for f in ("u", "v", "w", "u_init", "v_init", "w_init", "mask"):
+        np.testing.assert_array_equal(getattr(back, f), getattr(got, f))
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(divergence_free=True), "item 8"),
     (dict(method="linear"), "not ported"),
     (dict(method="rbf"), "not ported"),
 ])
 def test_unported_stages_raise(dataset, kw, match):
     d, csv, tif = dataset
-    config = _config(PipelineConfig, csv, tif, **{
-        k: v for k, v in kw.items() if k != "method"})
-    if "method" in kw:
-        config.method = kw["method"]
+    config = _config(PipelineConfig, csv, tif)
+    config.method = kw["method"]
     with pytest.raises(NotImplementedError, match=match):
         run_pipeline(config, device="cpu")
 

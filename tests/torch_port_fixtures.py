@@ -1,7 +1,12 @@
-"""Point clouds shared by the ``test_torch_*.py`` files, which hold the
-PyTorch port against the JAX package on the same numpy inputs. Each cloud
-is made from a seed and returns ``(points, values, bounds, n)``; the grid is
-``create_grid(bounds, n)``."""
+"""Inputs and helpers shared by the ``test_torch_*.py`` files, which hold
+the PyTorch port against the JAX package on the same numpy inputs. Each
+point cloud is made from a seed and returns ``(points, values, bounds,
+n)``; the grid is ``create_grid(bounds, n)``. The cleaning problems return
+a fluid mask, a field and the spacing."""
+
+import contextlib
+import io
+import re
 
 import numpy as np
 
@@ -88,6 +93,79 @@ def corner_slab():
     vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 1] * 0.2),
                      1.0 + 0.02 * pts[:, 2]], axis=-1).astype(np.float32)
     return pts, vals, ((0, n + 1),) * 3, n
+
+
+def odd_anisotropic():
+    """The odd-extent, anisotropic cleaning problem of
+    ``tests/test_physics.py::test_variational_woodbury_odd_anisotropic``:
+    a (21, 24, 27) grid around an ellipsoidal solid, spacing (1.0, 1.3,
+    0.7). Returns ``(fluid, u, v, w, (dx, dy, dz))``, f32 and zero in the
+    solid."""
+    shape = (21, 24, 27)
+    az = np.arange(shape[0]) - shape[0] / 2 + 0.5
+    ay = np.arange(shape[1]) - shape[1] / 2 + 0.5
+    ax = np.arange(shape[2]) - shape[2] / 2 + 0.5
+    Z, Y, X = np.meshgrid(az, ay, ax, indexing="ij")
+    fluid = ~(((X / 8.0) ** 2 + (Y / 7.0) ** 2 + (Z / 6.0) ** 2) < 1.0)
+    rng = np.random.default_rng(11)
+    mf = fluid.astype(np.float32)
+    u = (0.1 * rng.normal(size=shape)).astype(np.float32) * mf
+    v = (0.1 * rng.normal(size=shape)).astype(np.float32) * mf
+    w = (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32) * mf
+    return fluid, u, v, w, (1.0, 1.3, 0.7)
+
+
+def sphere_problem(n=16):
+    """``_sphere_mask(n)`` and ``_divergent_field(n)`` of
+    ``tests/test_physics.py``, the field f32 and zero in the solid.
+    Returns ``(fluid, u, v, w, (1.0, 1.0, 1.0))``."""
+    from test_physics import _divergent_field, _sphere_mask
+    fluid = _sphere_mask(n)
+    u, v, w = (np.asarray(a * fluid, np.float32) for a in _divergent_field(n))
+    return fluid, u, v, w, (1.0, 1.0, 1.0)
+
+
+def faces_mask(shape=(6, 7, 8), seed=0):
+    """A random mask (65% fluid) whose fluid touches all six faces of the
+    domain: every domain-edge Neumann term of the divergence is live."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random(shape) > 0.35
+    mask[0, 0, 0] = mask[-1, -1, -1] = True
+    mask[0, -1, 0] = mask[-1, 0, -1] = True
+    return mask
+
+
+_NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\d+)(?:e[-+]?\d+)?")
+
+
+def printed_lines(fn, *args, **kw):
+    """The lines ``fn(*args, **kw)`` prints."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args, **kw)
+    return out.getvalue().splitlines()
+
+
+def _last_digit(text):
+    """One unit of the last printed digit of a number's text."""
+    mantissa, _, exp = text.partition("e")
+    decimals = len(mantissa.partition(".")[2])
+    return 10.0 ** ((int(exp) if exp else 0) - decimals)
+
+
+def assert_reports_match(got_lines, want_lines, rtol=1e-5, iters=2):
+    """Two cleaning reports: the same lines with the same text between the
+    numbers; each number within ``rtol`` or one unit of its last printed
+    digit, the CG iteration count within ``iters``."""
+    assert len(got_lines) == len(want_lines), (got_lines, want_lines)
+    for g, w in zip(got_lines, want_lines):
+        assert _NUMBER.sub("#", g) == _NUMBER.sub("#", w), (g, w)
+        for a, b in zip(_NUMBER.findall(g), _NUMBER.findall(w)):
+            if g.startswith("CG iterations"):
+                assert abs(int(a) - int(b)) <= iters, (g, w)
+            else:
+                tol = max(rtol * abs(float(b)), _last_digit(b))
+                assert abs(float(a) - float(b)) <= tol, (g, w)
 
 
 def carry_cells(jax_cells, device="cpu"):
