@@ -43,7 +43,9 @@ and the script exits non-zero:
    blocks with the corners, edges, blocks whose windows leave the cell
    grid and random interior ones, sibson and IDW at p = 2 and 3 (τ²
    bit-equal); timed on one fixed slice of blocks (kernel and plain
-   version), and the kernel alone on every block;
+   version), and the kernel alone on every block; it prints its shared
+   memory plan (staged panel, shortlist entries S) and how many nodes
+   overflowed their shortlist;
 8. the route: ``sibson_grid_interpolate(..., backend="pallas",
    device="cuda")`` on the headline problem — one warm-up and 3 timed
    runs, launches, peak memory, a stage breakdown, and relative L2 against
@@ -808,9 +810,15 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
     torch.cuda.synchronize()
     n_blocks, R = starts.shape
     store_w = store.shape[1]
-    log(f"  headline: {n_blocks} blocks of {int(np.prod(PALLAS_BLOCK))} "
+    B = int(np.prod(PALLAS_BLOCK))
+    log(f"  headline: {n_blocks} blocks of {B} "
         f"nodes, R = {R} windows × L = {L} (C = {R * L}), store (8, "
         f"{store_w}); setup {time.perf_counter() - t0:.3f} s")
+    S, chunk, smem = pg._list_plan(R * L, B, k)
+    log(f"  shared memory per CTA: {smem - 2 * S * B} bytes of "
+        f"staged x, y, z ({chunk} slots) + shortlists of S = {S} u16 "
+        f"entries × {B} nodes = {smem} bytes; the list is written after "
+        f"{pg._LIST_AFTER} halvings on the panel")
 
     # corners, edges, blocks with windows outside the cell grid, interior
     nbz, nby, nbx = dims
@@ -836,6 +844,7 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
         errs.append(_compare_pallas(
             torch, got, want, f"{mode} p={power:g}, {len(ids)} blocks incl. "
             f"corners/edges/{len(outside)} outside the cell grid"))
+        _log_overflow(pg, got, f"{mode} p={power:g} subset")
 
     # one fixed slice of blocks for both versions, then every block
     all_ids = torch.arange(n_blocks, dtype=torch.int32, device=dev)
@@ -848,6 +857,7 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
     torch.cuda.synchronize()
     errs.append(_compare_pallas(torch, got, want,
                                 f"sibson, slice of {SLICE_BLOCKS} blocks"))
+    _log_overflow(pg, got, f"slice of {SLICE_BLOCKS} blocks")
     # the slice's work: 128 nodes against every real point of its windows
     # (each d² can move the bisection's upper bound, the farthest one);
     # the store columns the windows cover (x, y, z, u, v, w), the starts
@@ -863,7 +873,15 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     full_ms = _cuda_ms(torch, lambda: pg._pallas_eval(*full), reps=2)
     log(f"  every block ({n_blocks}), sibson: kernel {full_ms:.3f} ms")
+    _log_overflow(pg, pg._pallas_eval(*full), f"every block ({n_blocks})")
     return max(errs), ms, plain_ms, bound_ms, bound_by
+
+
+def _log_overflow(pg, out, what):
+    """Kernel 3's count of nodes that ran over the whole panel in the launch
+    that gave ``out``."""
+    log(f"  {what}: {int(pg._pallas_eval.last_overflow)} of "
+        f"{out.shape[0] * out.shape[1]} nodes overflowed their shortlist")
 
 
 def _interior_l2(torch, out, pts, vals, grid, n_nodes=20_000, seed=1):

@@ -44,9 +44,19 @@ _EPS = 1e-10
 _MODES = {"idw": 0, "sibson": 1}
 _MAX_ROWS = 128           # window starts a block may hold (the TPU's limit)
 _PLAIN_ELEMS = 1 << 24    # bound on (blocks × B × C) panels of the plain eval
-# staged candidates per pass: float4 each, within a CTA's 227 KB of shared
-# memory beside the window starts; wider panels are staged chunk by chunk
-_MAX_CHUNK = 14336
+_SMEM_BYTES = 232448      # shared memory one CTA may use on sm_90
+# staged slots per pass: x, y, z (12 bytes) each, within a CTA's 227 KB of
+# shared memory beside the window starts; wider panels are staged chunk by
+# chunk (and so stay below the 65 536 slots a u16 list entry indexes)
+_MAX_CHUNK = (_SMEM_BYTES - 4 * _MAX_ROWS) // 12
+# The kernel resolves the first _LIST_AFTER halvings on the staged panel and
+# then lists each node's slots with d² ≤ hi. On 128 headline blocks (1M
+# points → 256³, k = 50, block (2, 8, 8); tools/measure_pallas_list_counts.py)
+# that count reached 3 996 after 4 halvings, 505 after 8 and 79 after 12
+# (median 51): after 12, a list of k + _LIST_SLACK entries held every node
+# sampled.
+_LIST_AFTER = 12
+_LIST_SLACK = 48
 
 
 def _pad_block_axis(ax, b: int, nb: int) -> np.ndarray:
@@ -196,12 +206,30 @@ def _kernel_lib():
     from ptv_interpolation_tpu_torch.ops.cuda_build import load_library
     lib = load_library("pallas_grid_knn")
     lib.pallas_grid_knn_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
         + [ctypes.c_float, ctypes.c_void_p])
     lib.pallas_grid_knn_launch.restype = ctypes.c_int
     lib.pallas_grid_knn_error_string.argtypes = [ctypes.c_int]
     lib.pallas_grid_knn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _list_plan(C: int, B: int, k: int) -> Tuple[int, int, int]:
+    """Shared-memory plan of one CTA of the kernel: B threads over a panel
+    of C slots. Returns ``(S, chunk, bytes)``: the slots staged at once (C,
+    or ``_MAX_CHUNK`` for a wider panel, staged chunk by chunk on every
+    pass), S u16 shortlist entries per thread (k + ``_LIST_SLACK``), or
+    S = 0 where the panel is chunked or the lists do not fit beside it
+    (every thread then runs over the whole panel), and the dynamic shared
+    memory the launch asks for: 12 bytes per staged slot, padded to a
+    multiple of 4 slots, and 2·S per thread."""
+    chunk = min(C, _MAX_CHUNK)
+    panel = 12 * (-(-chunk // 4) * 4)
+    budget = _SMEM_BYTES - 4 * _MAX_ROWS      # the window starts are static
+    S = k + _LIST_SLACK
+    if chunk < C or panel + 2 * S * B > budget:
+        S = 0
+    return S, chunk, panel + 2 * S * B
 
 
 def _check_inputs(starts, ids, axes, store, block, dims, L: int, mode: str):
@@ -242,7 +270,9 @@ def _pallas_eval(starts: torch.Tensor, ids: torch.Tensor, axes,
     and τ² in column 3.
 
     On CUDA tensors this launches ``csrc/pallas_grid_knn.cu`` (and counts
-    the launch in ``_pallas_eval.launches``); on CPU tensors it runs
+    the launch in ``_pallas_eval.launches``; ``_pallas_eval.last_overflow``
+    is then a one-int device tensor, the number of nodes whose shortlist
+    did not fit and which ran over the whole panel); on CPU tensors it runs
     :func:`_pallas_eval_plain`."""
     _check_inputs(starts, ids, axes, store, block, dims, L, mode)
     if store.device.type == "cpu":
@@ -259,28 +289,31 @@ def _pallas_eval(starts: torch.Tensor, ids: torch.Tensor, axes,
         raise ValueError(f"store of {store.shape[1]} columns exceeds int32")
     if not all(t.is_contiguous() for t in (starts, ids, store, *axes)):
         raise ValueError("starts, ids, axes and store must be contiguous")
-    chunk = min(R * L, _MAX_CHUNK)
+    S, chunk, _ = _list_plan(R * L, B, int(k))
     lib = _kernel_lib()
     out = torch.empty((n, B, 4), dtype=torch.float32, device=store.device)
     if n == 0:
         return out
+    overflow = torch.zeros(1, dtype=torch.int32, device=store.device)
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream(store.device).cuda_stream
         err = lib.pallas_grid_knn_launch(
             starts.data_ptr(), ids.data_ptr(), axes[0].data_ptr(),
             axes[1].data_ptr(), axes[2].data_ptr(), store.data_ptr(),
-            out.data_ptr(), store.shape[1], n, R, L, chunk, B, by, bx,
-            dims[1], dims[2], int(k), _MODES[mode], int(bisect_iters),
-            float(power), stream)
+            out.data_ptr(), overflow.data_ptr(), store.shape[1], n, R, L,
+            chunk, S, B, by, bx, dims[1], dims[2], int(k), _MODES[mode],
+            max(int(bisect_iters), 0), _LIST_AFTER, float(power), stream)
     if err != 0:
         msg = lib.pallas_grid_knn_error_string(err).decode()
         raise RuntimeError(f"pallas_grid_knn kernel launch failed: {msg} "
                            f"(cudaError {err})")
     _pallas_eval.launches += 1
+    _pallas_eval.last_overflow = overflow
     return out
 
 
 _pallas_eval.launches = 0
+_pallas_eval.last_overflow = None
 
 
 def _sum_f32(x: torch.Tensor) -> torch.Tensor:

@@ -167,3 +167,125 @@ def test_pallas_eval_input_checks():
     with pytest.raises(ValueError, match="unsupported device"):
         tpg._pallas_eval(meta[0], meta[1], tuple(meta[3:]), meta[2],
                          *args[4:], "idw", 2.0, 14)
+
+
+@pytest.mark.parametrize("C,B,k", [(6144, 128, 50), (7168, 128, 10),
+                                   (19328, 128, 10), (27648, 128, 300),
+                                   (6144, 1024, 50), (512, 64, 1)])
+def test_list_plan_fits_shared_memory(C, B, k):
+    """The kernel's shared-memory plan stays within the 232 448 bytes a CTA
+    may use beside its 512 bytes of window starts, keeps the shortlists
+    wherever they fit beside a panel staged once, and plans S = 0 where
+    they do not or where the panel is staged chunk by chunk."""
+    S, chunk, smem = tpg._list_plan(C, B, k)
+    assert smem + 4 * 128 <= 232448
+    assert chunk == min(C, tpg._MAX_CHUNK)
+    panel = 12 * -(-chunk // 4) * 4
+    assert smem == panel + 2 * S * B
+    fits = chunk == C and panel + 2 * (k + 48) * B + 512 <= 232448
+    assert S == (k + 48 if fits else 0)
+
+
+def test_list_plan_at_the_headline():
+    """The headline's C = 6 144, 128 nodes, k = 50: 72 KiB of planes and
+    98 entries a node, 98 816 bytes, so that two CTAs share an SM's 228 KB
+    (with 1 KB reserved per CTA); wider panels are chunked with S = 0."""
+    assert tpg._list_plan(6144, 128, 50) == (98, 6144, 98816)
+    assert 2 * (98816 + 512 + 1024) <= 228 * 1024
+    assert tpg._MAX_CHUNK == 19328
+    assert tpg._list_plan(19456, 128, 10)[:2] == (0, 19328)
+    assert tpg._list_plan(6144, 1024, 80)[0] == 0
+
+
+# A model in numpy f32 of the kernel's halvings: 4-level trees over the
+# panel, then the shortlist's settled base and open slots.
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _tree(lo, hi):
+    """The 15 midpoints the sequential loop forms down each branch of 4
+    halvings of [lo, hi], in heap order; t[0] = hi."""
+    t, l, h = [_f32(0)] * 16, [_f32(0)] * 16, [_f32(0)] * 16
+    t[0], l[1], h[1] = hi, lo, hi
+    for n in range(1, 16):
+        if n > 1:
+            p = n >> 1
+            l[n], h[n] = (t[p], h[p]) if n & 1 else (l[p], t[p])
+        t[n] = _f32(0.5) * (l[n] + h[n])
+    return t
+
+
+def _halve(d2, base, levels, k, lo, hi):
+    """One visit: the counts at every midpoint (``base`` slots not in
+    ``d2`` count everywhere), then the walk of ``levels`` levels. Returns
+    (lo, hi, #{d² ≤ hi})."""
+    t = _tree(lo, hi)
+    c = [base + int((d2 <= tn).sum()) for tn in t]
+    n_hi, node = c[0], 1
+    for n in range(1, 1 << levels):
+        if n == node:
+            if c[n] < k:
+                lo, node = t[n], 2 * n + 1
+            else:
+                hi, n_hi, node = t[n], c[n], 2 * n
+    return lo, hi, n_hi
+
+
+def _kernel_halvings(d2, k, hi, iters, S, list_after=12):
+    """The kernel's steps: ``list_after`` halvings on the panel, 4 a sweep;
+    the list of the slots at d² ≤ hi when it holds S, its open slots and
+    settled base; the other halvings on the open slots (or the panel)."""
+    lo, done, on_panel = _f32(0), 0, min(iters, list_after)
+    while True:
+        levels = min(4, on_panel - done)
+        lo, hi, n_hi = _halve(d2, 0, levels, k, lo, hi)
+        done += levels
+        if done >= on_panel:
+            break
+    slots, base = d2, 0
+    if n_hi <= S:
+        listed = d2[d2 <= hi]
+        assert len(listed) == n_hi
+        slots = listed[listed > lo]
+        if len(slots) <= S - n_hi:
+            base = n_hi - len(slots)
+        else:
+            slots = listed
+    while done < iters:
+        levels = min(4, iters - done)
+        lo, hi, _ = _halve(slots, base, levels, k, lo, hi)
+        done += levels
+    return lo, hi, n_hi <= S
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, 4, 5, 12, 13, 14, 24])
+def test_tree_and_list_halvings_match_the_sequential_loop(iters):
+    """In f32, on random d² sets with ties and duplicates, and k from 1 to
+    past the set's size: the kernel's tree visits and shortlist land on the
+    same (lo, hi] as ``iters`` sequential halvings of [0, hi]."""
+    rng = np.random.default_rng(100 + iters)
+    on_list = 0
+    for case in range(120):
+        n = int(rng.integers(1, 400))
+        d2 = rng.uniform(0, 50, n).astype(np.float32)
+        if case % 3 == 1:
+            d2 = np.round(d2)                        # ties
+        if case % 3 == 2:
+            d2[: n // 2] = d2[0]                     # duplicated points
+        k = int(rng.integers(1, n + 20))
+        hi0 = _f32(d2.max()) * _f32(1.000001) + _f32(1e-30)
+        lo, hi = _f32(0), hi0
+        for _ in range(iters):
+            mid = _f32(0.5) * (lo + hi)
+            if (d2 <= mid).sum() >= k:
+                hi = mid
+            else:
+                lo = mid
+        S = k + 48 if case % 5 else 0
+        got_lo, got_hi, listed = _kernel_halvings(d2, k, hi0, iters, S)
+        assert (got_lo, got_hi) == (lo, hi), (case, n, k)
+        assert got_lo.dtype == got_hi.dtype == np.float32
+        on_list += listed
+    assert on_list > 30

@@ -63,6 +63,12 @@ def _launch_and_plain(args, k, mode, power, iters=14):
     return got, want
 
 
+def _overflow(args):
+    """Nodes of the last launch that ran over the whole panel, and the
+    node count."""
+    return int(tpg._pallas_eval.last_overflow), args[0].shape[0] * 128
+
+
 @pytest.mark.parametrize("cloud,mode,power,iters", [
     ("corner_slab", "sibson", 2.0, 14), ("corner_slab", "idw", 2.0, 14),
     ("uniform", "idw", 3.0, 14), ("ragged", "sibson", 2.0, 18),
@@ -75,6 +81,8 @@ def test_pallas_kernel_matches_plain_on_gpu(cuda_device, cloud, mode, power,
     args = _inputs(getattr(fx, cloud)(), 10, cuda_device)
     got, want = _launch_and_plain(args, 10, mode, power, iters)
     _check(got, want)
+    overflow, n = _overflow(args)
+    assert overflow < n
     if cloud == "void_region":
         empty = (want[..., :3] == 0).all(dim=-1)
         assert int(empty.sum()) > 100, "fixture must have empty windows"
@@ -93,11 +101,62 @@ def test_pallas_kernel_on_a_block_subset(cuda_device):
     assert torch.equal(got, full[pick])
 
 
+@pytest.mark.parametrize("iters", [1, 2, 4, 5, 12, 13, 14, 24])
+@pytest.mark.parametrize("mode,power", [("sibson", 2.0), ("idw", 2.0),
+                                        ("idw", 3.0)])
+def test_pallas_kernel_halvings_on_gpu(cuda_device, mode, power, iters):
+    """Halvings that stop on the panel (1 to 12: tree visits of fewer
+    levels at the end) and that go on on the shortlist (13, 14, 24), every
+    block of the corner slab."""
+    args = _inputs(fx.corner_slab(), 10, cuda_device)
+    _check(*_launch_and_plain(args, 10, mode, power, iters))
+    overflow, n = _overflow(args)
+    assert overflow < n
+
+
+def _duplicated_cloud():
+    """A uniform cloud with one point copied 80 times beside a grid node:
+    more than the k + 48 entries a shortlist holds at k = 10, so the nodes
+    around it count more than their list holds after 12 halvings."""
+    pts, vals, bounds, n = fx.uniform()
+    extra = np.repeat([[12.3, 11.8, 12.1]], 80, 0).astype(np.float32)
+    extra_vals = np.ones((len(extra), 3), np.float32)
+    return (np.concatenate([pts, extra]), np.concatenate([vals, extra_vals]),
+            bounds, n)
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_pallas_kernel_overflow_on_duplicates_on_gpu(cuda_device, mode):
+    """Nodes beside 80 coincident points run over the whole panel, with
+    the same result; the others stay on their shortlists."""
+    args = _inputs(_duplicated_cloud(), 10, cuda_device)
+    _check(*_launch_and_plain(args, 10, mode, 2.0))
+    overflow, n = _overflow(args)
+    assert 0 < overflow < n
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_pallas_kernel_without_lists_on_gpu(cuda_device, mode, monkeypatch):
+    """With S forced to 0 every node runs over the whole panel, and the
+    result is the same as on the shortlists, bit for bit."""
+    args = _inputs(fx.corner_slab(), 10, cuda_device)
+    listed = tpg._pallas_eval(*args, 10, mode, 2.0, 14)
+    plan = tpg._list_plan
+    monkeypatch.setattr(tpg, "_list_plan",
+                        lambda C, B, k: (0,) + plan(C, B, k)[1:])
+    got, want = _launch_and_plain(args, 10, mode, 2.0)
+    _check(got, want)
+    overflow, n = _overflow(args)
+    assert overflow == n
+    assert torch.equal(got, listed)
+
+
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
 def test_pallas_kernel_chunked_staging(cuda_device, mode, monkeypatch):
     """Panels wider than the staged width are staged chunk by chunk on
-    every pass: a dense cloud at k=300, whose C exceeds the width, and a
-    small cloud with the width cut to 512 slots."""
+    every pass, and every node runs over the whole panel: a dense cloud at
+    k=300, whose C exceeds the width, and a small cloud with the width cut
+    to 512 slots."""
     pts = np.random.default_rng(3).uniform(0, 16, size=(20000, 3)).astype(
         np.float32)
     vals = np.stack([np.sin(pts[:, 0]), np.cos(pts[:, 1]), pts[:, 2]],
@@ -106,10 +165,12 @@ def test_pallas_kernel_chunked_staging(cuda_device, mode, monkeypatch):
     starts, L = args[0], args[-1]
     assert starts.shape[1] * L > tpg._MAX_CHUNK
     _check(*_launch_and_plain(args, 300, mode, 2.0))
+    assert _overflow(args)[0] == _overflow(args)[1]
     monkeypatch.setattr(tpg, "_MAX_CHUNK", 512)
     args = _inputs(fx.corner_slab(), 10, cuda_device)
     assert args[0].shape[1] * args[-1] > 512
     _check(*_launch_and_plain(args, 10, mode, 2.0))
+    assert _overflow(args)[0] == _overflow(args)[1]
 
 
 def test_pallas_kernel_refuses_non_contiguous_input(cuda_device):

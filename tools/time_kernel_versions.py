@@ -28,7 +28,8 @@ times the kernel with CUDA events after a warm-up
   warm runs;
 * ``pallas``: kernel 3 (``pallas_grid_knn.cu``) on ``chip_smoke`` phase
   7's slice of 1 024 headline blocks, 5 launches, and on every block, 2
-  launches.
+  launches, with a digest of each and, where the checkout's wrapper keeps
+  one, the count of nodes that overflowed their shortlist.
 
 Each worker also prints digests of the kernels' outputs (sums and
 uncovered counts), which agree between checkouts whose kernels compute the
@@ -133,9 +134,11 @@ def worker(tree, measures):
         res["pallas_slice_digest"] = [float(out[..., :3].double().sum()),
                                       float(out[..., 3].double().sum())]
         del out
-        res["pallas_all_ms"] = cs._cuda_ms(
-            torch, lambda: pg._pallas_eval(*full), 2)
-        del full
+        out = _time_kernel(torch, cs, res, "pallas_all", pg._pallas_eval,
+                           full, reps=2)
+        res["pallas_all_digest"] = [float(out[..., :3].double().sum()),
+                                    float(out[..., 3].double().sum())]
+        del out, full
     if "grid" in measures or "pallas" in measures:
         del pts, vals
 
