@@ -68,9 +68,27 @@ and the script exits non-zero:
    projection method once; and takes one more cleaning call apart (set-up,
    CG iterations × ms, the shares of the S operator, V-cycle and dots with
    a synchronisation between layers, launches and device busy time per
-   iteration).
+   iteration);
+11. the other interpolation methods, PyTorch ops with no kernel of their
+   own (TF32 checked off first): (a) local RBF on the grid route at
+   scenarios 3/4's size (500 000 tracks → 128³, thin-plate, k = 20) —
+   warm-up and 3 timed runs, the selection and solve walls, peak memory,
+   f64 scipy ``RBFInterpolator`` on 2 000 fluid nodes (median and 99th
+   percentile bars of ``tests/test_interpolate.py``), ``torch.linalg.solve``
+   on one chunk of systems beside ``_gauss_solve_t``, the flat solve on
+   the card against the CPU; (b) global dense RBF, scenario 2, against the
+   analytic cylinder flow; (c) global RBF through PCG at 30 000 points
+   against the dense fit and the analytic field; (d) nearest at phase 9's
+   size through the cell list, bit for bit against the port on the CPU on
+   20 000 nodes, with its agreement with an f64 cKDTree; (e) linear through
+   ``run_pipeline`` at phase 6's mask and flags with 400 000 tracks — one
+   cold run (Qhull, timed apart) and two warm ones, the solid exactly 0,
+   the field against the device ``linear_interpolate`` on 20 000 fluid
+   nodes. The generic paths'
+   launches and wall per query tile are printed for the record.
 
-The second-to-last line of standard output is the kernels' JSON record
+The script's wall is printed before the kernels' record. The second-to-last
+line of standard output is the kernels' JSON record
 (``ms``, ``plain_ms`` and ``bound_ms`` are the full panel for the first two
 kernels and phase 7's fixed slice for the third; ``bound_ms`` is the larger
 of the d² the function needs, 8 unfused fp32 operations each at 33.5e12/s
@@ -450,7 +468,7 @@ def pipeline_config(**kw):
     return PipelineConfig(**{**fields, **kw})
 
 
-def make_pipeline_problem(seed=0):
+def make_pipeline_problem(seed=0, n_tracks=N_TRACKS):
     """The production shape of ``benchmarks/production_shape.py`` at raw
     resolution: its solid formula (line 46) evaluated at half the raw-voxel
     offsets (92% fluid), 650 000 tracks uniform in the fluid with its
@@ -467,9 +485,9 @@ def make_pipeline_problem(seed=0):
              * np.sin(ax * 0.11)[None, None, :]) > 0.55
     fluid = ~solid
     pts = rng.uniform((0, 0, 0), (nx, ny, nz),
-                      size=(int(N_TRACKS * 1.3), 3)).astype(np.float32)
+                      size=(int(n_tracks * 1.3), 3)).astype(np.float32)
     idx = np.clip(pts.astype(int), 0, (nx - 1, ny - 1, nz - 1))
-    pts = pts[fluid[idx[:, 2], idx[:, 1], idx[:, 0]]][:N_TRACKS]
+    pts = pts[fluid[idx[:, 2], idx[:, 1], idx[:, 0]]][:n_tracks]
     half = pts / 2
     vals = np.stack([0.05 * np.sin(half[:, 0] * 0.05),
                      0.05 * np.cos(half[:, 1] * 0.04),
@@ -1324,8 +1342,387 @@ def phase_cleaning(torch, fluid, pts, vals, uncleaned):
     return (sum(n for n, _ in launches), sum(n for _, n in launches))
 
 
+# ---------------------------------------------------------------------------
+# The other interpolation methods (phase 11): PyTorch ops, no kernel
+# ---------------------------------------------------------------------------
+
+RBF_MEDIAN_LIMIT, RBF_P99_LIMIT = 2e-3, 3e-2   # tests/test_interpolate.py
+CYL_ERR_LIMIT = 0.02                           # scenario 2's accuracy bar
+PCG_DENSE_LIMIT, PCG_FIELD_LIMIT = 2e-3, 5e-2  # tests/test_rbf_global_pcg.py
+FLAT_CPU_LIMIT = 1e-4
+LINEAR_L2_LIMIT = 1e-6
+# 11e's track count: Qhull on the production cloud (650 000 tracks and the
+# boundary particles, 668 827 points) took 72-86 s on the H100's host, over
+# the 60 s this phase allows it, so 11e triangulates 400 000 tracks
+LINEAR_TRACKS = 400_000
+
+
+def porous_problem(n_points=1_000_000, n=256, seed=0):
+    """``benchmarks/scenarios.py::porous_problem``: tracks inside a porous
+    (gyroid-like) solid at n³. Returns ``(pts, vals, fluid)``."""
+    rng = np.random.default_rng(seed)
+    ax = np.arange(n) - n / 2
+    Z, Y, X = np.meshgrid(ax, ax, ax, indexing="ij")
+    solid = (np.sin(X * 0.1) * np.sin(Y * 0.13) * np.sin(Z * 0.07)) > 0.55
+    fluid = ~solid
+    pts = rng.uniform(0, n, size=(int(n_points * 1.2), 3)).astype(np.float32)
+    idx = np.clip(pts.astype(int), 0, n - 1)
+    keep = fluid[idx[:, 2], idx[:, 1], idx[:, 0]]
+    pts = pts[keep][:n_points]
+    vals = np.stack([
+        0.05 * np.sin(pts[:, 0] * 0.05),
+        0.05 * np.cos(pts[:, 1] * 0.04),
+        1.0 + 0.1 * np.sin(pts[:, 2] * 0.03),
+    ], axis=-1).astype(np.float32)
+    return pts, vals, fluid
+
+
+def _synced(torch, fn):
+    """``(result, seconds)`` of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tile_launches(torch, fn, n_tiles, what):
+    """Device launches and wall of ``fn()`` over ``n_tiles`` query tiles,
+    printed per tile (the generic paths run one Python loop step per
+    tile)."""
+    n, dev_ms = _device_launches(torch, fn)
+    _, wall = _synced(torch, fn)
+    per = (f"{n / n_tiles:.0f} launches, device busy "
+           f"{dev_ms / n_tiles:.3f} ms" if n else "launches not measured")
+    log(f"  {what}: {per} and {wall / n_tiles * 1e3:.3f} ms of wall per "
+        f"tile ({n_tiles} tiles)")
+
+
+def phase_local_rbf(torch, n_points=500_000, n=128):
+    from scipy.interpolate import RBFInterpolator
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    from ptv_interpolation_tpu_torch.interpolate import rbf_local as rl
+    from ptv_interpolation_tpu_torch.interpolate.dispatch import (
+        interpolate_field)
+    log("== 11a. local RBF on the grid route (scenarios 3/4: 500 000 "
+        "tracks → 128³, thin-plate, k = 20)")
+    pts, vals, fluid = porous_problem(n_points, n)
+    grid = create_grid(((0, n + 1),) * 3, n)
+
+    def run():
+        return interpolate_field(pts, vals, grid, method="rbf",
+                                 rbf_neighbors=20, use_grid_kernel="always",
+                                 device="cuda")
+
+    _, first = _synced(torch, run)
+    log(f"  {len(pts)} tracks; warm-up run {first:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        out, wall = _synced(torch, run)
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    solve = rl._rbf_solve_flat
+    spent = {}
+
+    def timed_solve(*a, **kw):
+        res, spent["solve"] = _synced(torch, lambda: solve(*a, **kw))
+        return res
+
+    rl._rbf_solve_flat = timed_solve
+    try:
+        _, whole = _synced(torch, run)
+    finally:
+        rl._rbf_solve_flat = solve
+    log(f"  median wall {float(np.median(walls)):.4f} s over 3 runs "
+        f"({', '.join(f'{w:.4f}' for w in walls)}); selection "
+        f"{whole - spent['solve']:.4f} s + solve {spent['solve']:.4f} s in "
+        f"one more run; peak device memory {peak / 2**30:.3f} GiB")
+    U, V, W = (a.cpu().numpy() for a in out)
+    if not all(np.isfinite(a).all() for a in (U, V, W)):
+        raise AssertionError("non-finite values in the local RBF field")
+
+    # against f64 scipy RBFInterpolator(neighbors=20) on 2 000 fluid nodes
+    rng = np.random.default_rng(2)
+    fl = np.flatnonzero(fluid.reshape(-1))
+    iz, iy, ix = np.unravel_index(rng.choice(fl, 2000, replace=False),
+                                  fluid.shape)
+    q = np.stack([grid.x[ix], grid.y[iy], grid.z[iz]], axis=-1)
+    t0 = time.perf_counter()
+    want = RBFInterpolator(pts.astype(np.float64), vals.astype(np.float64),
+                           neighbors=20, kernel="thin_plate_spline")(q)
+    got = np.stack([U[iz, iy, ix], V[iz, iy, ix], W[iz, iy, ix]], axis=-1)
+    err = np.abs(got - want) / (np.abs(want).max() + 1e-9)
+    med, p99 = float(np.median(err)), float(np.percentile(err, 99))
+    log(f"  vs f64 scipy RBFInterpolator on 2000 fluid nodes "
+        f"({time.perf_counter() - t0:.1f} s): median {med:.3e} (limit "
+        f"{RBF_MEDIAN_LIMIT:.0e}), 99th percentile {p99:.3e} (limit "
+        f"{RBF_P99_LIMIT:.0e})")
+    if not (med < RBF_MEDIAN_LIMIT and p99 < RBF_P99_LIMIT):
+        raise AssertionError("local RBF misses scipy's accuracy bars")
+
+    # the library yardstick: torch.linalg.solve on one chunk of systems
+    k, m = 20, 4
+    args = {}
+
+    def grab(a, rhs):
+        args.setdefault("A", (a, rhs))
+        return gauss(a, rhs)
+
+    gauss = rl._gauss_solve_t
+    rl._gauss_solve_t = grab
+    try:
+        run()
+    finally:
+        rl._gauss_solve_t = gauss
+    A, rhs = args["A"]
+    B = A.shape[2]
+    A_b = A.permute(2, 0, 1).contiguous()
+    rhs_b = rhs.permute(2, 0, 1).contiguous()
+    gj_ms = _cuda_ms(torch, lambda: gauss(A, rhs), reps=3)
+    lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_ex(A_b, rhs_b),
+                      reps=3)
+    x_gj = gauss(A, rhs).permute(2, 0, 1)
+    x_lib = torch.linalg.solve_ex(A_b, rhs_b)[0]
+    ok = torch.isfinite(x_gj).all(dim=(1, 2)) & torch.isfinite(x_lib).all(
+        dim=(1, 2))
+    diff = float(((x_gj - x_lib)[ok].norm() / x_lib[ok].norm()))
+    log(f"  one chunk of {B} saddle systems ({k + m}×{k + m}, 3 right-hand "
+        f"sides): _gauss_solve_t {gj_ms:.3f} ms, torch.linalg.solve "
+        f"{lib_ms:.3f} ms (difference {gj_ms - lib_ms:+.3f} ms); solutions "
+        f"{diff:.3e} apart (relative L2, {int(ok.sum())} finite systems)")
+
+    # the flat solve on the card against the same function on the CPU
+    ids = torch.as_tensor(rng.choice(n ** 3, 4096, replace=False))
+    cap = {}
+    flat = rl._rbf_solve_flat
+
+    def grab_flat(*a, **kw):
+        cap["args"] = a
+        return flat(*a, **kw)
+
+    rl._rbf_solve_flat = grab_flat
+    try:
+        run()
+    finally:
+        rl._rbf_solve_flat = flat
+    p_, v_, q_, sq_, idx_ = cap["args"][:5]
+    rest = cap["args"][5:]
+    sub = (p_, v_, q_[ids.cuda()], sq_[ids.cuda()], idx_[ids.cuda()])
+    dev_out = flat(*sub, *rest).cpu().double()
+    cpu_out = flat(*(a.cpu() for a in sub), *rest).double()
+    rel = float((dev_out - cpu_out).norm() / cpu_out.norm())
+    log(f"  _rbf_solve_flat on 4096 nodes, card against CPU: relative L2 "
+        f"{rel:.3e} (limit {FLAT_CPU_LIMIT:.0e})")
+    if not rel <= FLAT_CPU_LIMIT:
+        raise AssertionError("the flat solve differs between card and CPU")
+
+    # the scattered route's per-tile loop (query_tile 256), for the record
+    qs = torch.as_tensor(q[:1024].astype(np.float32), device="cuda")
+    _tile_launches(torch, lambda: rl.rbf_local_interpolate(
+        pts[:50_000], vals[:50_000], qs, k=20, device="cuda"), 4,
+        "rbf_local_interpolate (brute force over 50 000 points)")
+    return float(np.median(walls))
+
+
+def phase_global_rbf(torch, n_cyl=5000, n_pcg=30_000):
+    from ptv_interpolation_tpu_torch.datasets import cylinders
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    from ptv_interpolation_tpu_torch.interpolate import (
+        rbf_global as rg, rbf_global_pcg as rp)
+    log("== 11b. global RBF, dense Cholesky (scenario 2: cylinders, 5 000 "
+        "points, gaussian ε = 2, smoothing 1e-3 → 64×32×16)")
+    cloud, _, bounds = cylinders.generate(n_points=n_cyl)
+    grid = create_grid(bounds, (64, 32, 16))
+    queries = grid.flat_coords("cuda")
+
+    def run():
+        return rg.rbf_global_interpolate(
+            cloud.points, cloud.values, queries, solver="dense",
+            kernel="gaussian", epsilon=2.0, smoothing=1e-3, degree=-1,
+            device="cuda")
+
+    _, first = _synced(torch, run)
+    out, wall = _synced(torch, run)
+    q = queries.cpu().numpy()
+    u_true, _ = cylinders.analytic_velocity(q[:, 0], q[:, 1])
+    interior = ((np.abs(q[:, 0]) > 0.5) & (np.abs(q[:, 0] - 3) > 0.5)
+                & (np.abs(q[:, 1]) < 1.5))
+    err = float(np.abs(out.cpu().numpy()[interior, 0]
+                       - u_true[interior]).mean())
+    log(f"  {len(cloud)} points: first call {first:.3f} s, warm {wall:.4f} "
+        f"s; mean |u − analytic| on {int(interior.sum())} interior nodes "
+        f"{err:.4f} (limit {CYL_ERR_LIMIT})")
+    if not err <= CYL_ERR_LIMIT:
+        raise AssertionError("global RBF misses scenario 2's accuracy")
+
+    log("== 11c. global RBF through PCG (30 000 points of "
+        "tests/test_rbf_global_pcg.py's field, thin-plate ε = 1)")
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 10, size=(n_pcg, 3)).astype(np.float32)
+    field = _pcg_field
+    vals = field(pts).astype(np.float32)
+    qp = rng.uniform(1, 9, size=(1500, 3)).astype(np.float32)
+    pcg, wall = _synced(torch, lambda: rg.rbf_global_interpolate(
+        pts, vals, qp, kernel="thin_plate_spline", device="cuda"))
+    iters, res = rp.rbf_global_fit_pcg.last_solve
+    dense, dense_s = _synced(torch, lambda: rg.rbf_global_evaluate(
+        rg.rbf_global_fit(pts, vals, kernel="thin_plate_spline",
+                          device="cuda"), qp))
+    pcg, dense = pcg.cpu().double().numpy(), dense.cpu().double().numpy()
+    truth = field(qp.astype(np.float64))
+    vs_dense = float(np.linalg.norm(pcg - dense) / np.linalg.norm(dense))
+    vs_truth = float(np.linalg.norm(pcg - truth) / np.linalg.norm(truth))
+    log(f"  solver='auto' → PCG: {iters} iterations, relres {res:.2e}, "
+        f"{wall:.3f} s (dense LU fit and evaluation {dense_s:.3f} s); "
+        f"relative L2 vs dense {vs_dense:.3e} (limit {PCG_DENSE_LIMIT:.0e}),"
+        f" vs the analytic field {vs_truth:.3e} (limit "
+        f"{PCG_FIELD_LIMIT:.0e})")
+    if not (vs_dense < PCG_DENSE_LIMIT and vs_truth < PCG_FIELD_LIMIT):
+        raise AssertionError("the PCG fit misses its bars")
+    return wall
+
+
+def _pcg_field(p):
+    """``tests/test_rbf_global_pcg.py::_field``."""
+    return np.stack([np.sin(p[:, 0] * 0.7),
+                     np.cos(p[:, 1] * 0.5) + 0.3 * p[:, 2],
+                     p[:, 0] * p[:, 1] * 0.1], axis=-1)
+
+
+def phase_nearest(torch):
+    from scipy.spatial import cKDTree
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    from ptv_interpolation_tpu_torch.interpolate import knn_weights as kw
+    from ptv_interpolation_tpu_torch.interpolate.dispatch import (
+        interpolate_field)
+    from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+    log(f"== 11d. nearest, {SMALL_POINTS} points → {SMALL_N}³ (Q·N > 2³¹: "
+        f"the cell-list search)")
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, SMALL_N, size=(SMALL_POINTS, 3)).astype(np.float32)
+    vals = rng.normal(size=(SMALL_POINTS, 3)).astype(np.float32)
+    grid = create_grid(((0, SMALL_N + 1),) * 3, SMALL_N)
+
+    def run():
+        return interpolate_field(pts, vals, grid, method="nearest",
+                                 device="cuda")
+
+    _, first = _synced(torch, run)
+    (U, V, W), wall = _synced(torch, run)
+    out = torch.stack([U, V, W], dim=-1).reshape(-1, 3)
+    nodes = rng.choice(grid.n_points, 20_000, replace=False)
+    q = grid.flat_coords("cpu")[torch.as_tensor(nodes)]
+    cpu = kw.nearest_interpolate(pts, vals, q, cells=build_cell_list(
+        pts, k_hint=1, device="cpu"), device="cpu")
+    card = out[torch.as_tensor(nodes, device="cuda")].cpu()
+    if not torch.equal(card, cpu):
+        n_off = int((card != cpu).any(dim=1).sum())
+        raise AssertionError(f"nearest: {n_off} of 20000 nodes differ "
+                             f"between card and CPU")
+    exact = cKDTree(pts.astype(np.float64)).query(q.double().numpy())[1]
+    agree = float((card.numpy() == vals[exact]).all(axis=1).mean())
+    log(f"  first call {first:.3f} s, warm {wall:.4f} s; 20000 nodes bit "
+        f"for bit equal to the port on the CPU; {agree:.4%} pick the f64 "
+        f"cKDTree's point (the search is exact within its ring radius)")
+    qs = grid.flat_coords("cuda")[:4096]
+    cells = build_cell_list(pts, k_hint=1, device="cuda")
+    _tile_launches(torch, lambda: kw.nearest_interpolate(
+        pts, vals, qs, cells=cells, device="cuda"), 4,
+        "nearest_interpolate over the cell list")
+    return wall
+
+
+def phase_linear(torch, fluid, pts, vals):
+    import dataclasses
+    from ptv_interpolation_tpu_torch import pipeline
+    from ptv_interpolation_tpu_torch.interpolate import delaunay
+    from ptv_interpolation_tpu_torch.io import PointCloud
+    from ptv_interpolation_tpu_torch.utils import StageTimings
+    log(f"== 11e. linear through run_pipeline at the production shape "
+        f"(phase 6's mask and flags, method='linear', {len(pts)} tracks)")
+    config = dataclasses.replace(pipeline_config(), method="linear")
+    seen = {}
+    interp = pipeline.interpolate_field
+    tri_fn = delaunay.get_cached_triangulation
+
+    def grab_interp(points, values, grid, **kw):
+        seen["cloud"] = (np.asarray(points), np.asarray(values))
+        return interp(points, values, grid, **kw)
+
+    def timed_tri(points, **kw):
+        hit = delaunay._points_digest(delaunay._host(
+            points, np.float64)) in delaunay._TRI_CACHE
+        t0 = time.perf_counter()
+        tri = tri_fn(points, **kw)
+        if not hit:
+            seen["qhull"] = time.perf_counter() - t0
+        return tri
+
+    pipeline.interpolate_field = grab_interp
+    delaunay.get_cached_triangulation = timed_tri
+    walls, stages = [], []
+    try:
+        delaunay._TRI_CACHE.clear()
+        for i in range(3):
+            timings = StageTimings()
+            res, wall = _synced(torch, lambda: pipeline.run_pipeline(
+                config, cloud=PointCloud(pts, vals), mask_raw=fluid,
+                timings=timings, device="cuda"))
+            walls.append(wall)
+            stages.append(dict(timings.stages))
+            log(f"  {'cold' if i == 0 else 'warm'} run {i + 1}: {wall:.4f} "
+                "s; " + ", ".join(f"{n} {t:.4f}"
+                                  for n, t in timings.stages.items()))
+    finally:
+        pipeline.interpolate_field = interp
+        delaunay.get_cached_triangulation = tri_fn
+    fpts, fvals = seen["cloud"]
+    log(f"  Qhull on {len(fpts)} points (tracks and boundary particles): "
+        f"{seen['qhull']:.2f} s of the cold run; warm runs hit the cache")
+    solid = ~res.mask
+    n_bad = sum(int(np.count_nonzero(getattr(res, f)[solid])) for f in "uvw")
+    if n_bad:
+        raise AssertionError("linear: solid nodes are not exactly 0")
+    rng = np.random.default_rng(1)
+    fl = np.flatnonzero(res.mask.reshape(-1))
+    iz, iy, ix = np.unravel_index(
+        rng.choice(fl, min(20_000, len(fl)), replace=False), res.mask.shape)
+    q = np.stack([res.x[ix], res.y[iy], res.z[iz]], axis=-1)
+    ref = delaunay.linear_interpolate(fpts, fvals, q, device="cuda")
+    ref = ref.cpu().double().numpy()
+    got = np.stack([res.u[iz, iy, ix], res.v[iz, iy, ix],
+                    res.w[iz, iy, ix]], axis=-1).astype(np.float64)
+    l2 = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    log(f"  field vs the device linear_interpolate on {len(iz)} fluid nodes: "
+        f"relative L2 {l2:.3e} (limit {LINEAR_L2_LIMIT:.0e}); solid "
+        f"{int(solid.sum())} nodes, 0 nonzero")
+    if not l2 <= LINEAR_L2_LIMIT:
+        raise AssertionError("linear: the host walk and the device blend "
+                             "disagree")
+    return walls
+
+
+def phase_other_methods(torch):
+    log("== 11. the other interpolation methods (PyTorch ops; this slice "
+        "adds no kernel, so the kernels' line is phases 1-10's)")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on: the global RBF sums need full f32")
+    log("  TF32 off, float32 matmul precision 'highest'")
+    phase_local_rbf(torch)
+    torch.cuda.empty_cache()
+    phase_global_rbf(torch)
+    torch.cuda.empty_cache()
+    phase_nearest(torch)
+    torch.cuda.empty_cache()
+    fluid, pts, vals = make_pipeline_problem(n_tracks=LINEAR_TRACKS)[:3]
+    phase_linear(torch, fluid, pts, vals)
+
+
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1356,10 +1753,13 @@ def main():
     fluid, pts, vals = problem[:3]
     clean_mad, clean_grid = phase_cleaning(torch, fluid, pts, vals, uncleaned)
     del problem, fluid, pts, vals, uncleaned
+    torch.cuda.empty_cache()
+    phase_other_methods(torch)
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
         f"(phase 6) + {clean_grid} (phase 10); fused_mad {mad_launches} "
         f"(phase 6) + {clean_mad} (phase 10); pallas_grid_knn "
         f"{pl_launches} (phase 8)")
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
         "name": "fused_grid_knn",

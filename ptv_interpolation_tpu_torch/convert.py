@@ -1,9 +1,12 @@
 """State carried across from the JAX package.
 
 The system holds no weights; its state is the CSR cell list (and the
-values sorted by it). :func:`cells_from_numpy` turns a JAX ``CellList``'s
-arrays, pulled to the host, into the port's :class:`CellList`, so that both
-packages can run their later stages on one and the same cell list.
+values sorted by it), and a fitted global RBF model.
+:func:`cells_from_numpy` turns a JAX ``CellList``'s arrays, pulled to the
+host, into the port's :class:`CellList`, so that both packages can run
+their later stages on one and the same cell list;
+:func:`global_rbf_from_numpy` does the same for a JAX ``GlobalRBF``, so
+that both evaluate one fitted model.
 """
 
 from __future__ import annotations
@@ -11,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ptv_interpolation_tpu_torch.device import resolve_device
+from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
+from ptv_interpolation_tpu_torch.interpolate.rbf_global import GlobalRBF
 from ptv_interpolation_tpu_torch.ops.neighbors import CellList
 
 
@@ -39,3 +43,20 @@ def cells_from_numpy(starts, order, points_sorted, origin, inv_cell, dims,
         origin_host=origin,
         inv_host=float(inv_cell[0]) if inv_host is None else float(inv_host),
     )
+
+
+def global_rbf_from_numpy(points_scaled, coeffs, poly_coeffs, shift, scale,
+                          kernel: str, epsilon: float, degree: int,
+                          device="cuda") -> GlobalRBF:
+    """The port's :class:`GlobalRBF` from a fitted model's host arrays:
+    ``points_scaled`` (N, 3), ``coeffs`` (N, C), ``poly_coeffs`` (m, C),
+    ``shift`` (3,), ``scale`` (a scalar), and its kernel, epsilon and
+    polynomial degree."""
+    dev = resolve_device(device)
+    return GlobalRBF(
+        points_scaled=as_f32(np.array(points_scaled, np.float32), dev),
+        coeffs=as_f32(np.array(coeffs, np.float32), dev),
+        poly_coeffs=as_f32(np.array(poly_coeffs, np.float32), dev),
+        shift=as_f32(np.array(shift, np.float32), dev),
+        scale=as_f32(np.array(scale, np.float32), dev).reshape(()),
+        kernel=kernel, epsilon=float(epsilon), degree=int(degree))

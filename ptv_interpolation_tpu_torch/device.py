@@ -24,3 +24,15 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a float32 tensor on ``device`` —
     numpy inputs cross to the device once, here."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its subnormal values set to 0, as XLA gives them on the
+    CPU and the TPU (it flushes them), where a result of the JAX package
+    depends on it: the weights and kernel matrices of a cell list's empty
+    slots (d² = 3.4e38), whose values fall below the smallest normal
+    f32. PyTorch keeps subnormals on both devices."""
+    return torch.where(x.abs() < _F32_TINY, 0.0, x)

@@ -23,7 +23,9 @@ import torch
 
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.io.csvio import PointCloud
-from ptv_interpolation_tpu_torch.ops.neighbors import (bruteforce_tile_fn,
+from ptv_interpolation_tpu_torch.ops.neighbors import (bounded_cell_list,
+                                                       bruteforce_tile_fn,
+                                                       celllist_tile_fn,
                                                        map_query_tiles)
 
 # above this many points the filter takes the scatter-block route; below
@@ -67,35 +69,37 @@ def speed_threshold_mask(values, max_speed, device="cuda") -> torch.Tensor:
 
 
 def knn_mad_mask(points, values, k: int = 25, threshold: float = 3.0,
-                 query_tile: int = 1024, cells=None, device="cuda"):
-    """Keep mask of the k-NN median/MAD filter, exact brute-force
-    formulation (small clouds, parity tests, and the fallback of
-    clustered clouds); the pipeline uses :func:`knn_mad_mask_scatter` at
-    scale.
+                 query_tile: int = 1024, cells=None, rings: int = 1,
+                 device="cuda"):
+    """Keep mask of the k-NN median/MAD filter over exact brute-force kNN,
+    or the cell-list search over ``cells`` (small clouds, parity tests,
+    and the fallback of clustered clouds); the pipeline uses
+    :func:`knn_mad_mask_scatter` at scale.
 
     Queries the k+1 nearest (self included, then dropped as the
     reference's ``idx[:, 1:]``), takes the neighbourhood speed median and
     MAD, and flags ``|speed - median| / (MAD + 1e-6) > threshold``.
     Returns ``(keep_mask, median_filter_radius)`` tensors on ``device``;
-    the radius is the median distance to the k-th neighbour.
-
-    ``cells`` (the JAX package's cell-list search, ``celllist_tile_fn``)
-    is not ported yet and raises ``NotImplementedError``."""
-    if cells is not None:
-        raise NotImplementedError(
-            "knn_mad_mask(cells=...) needs celllist_tile_fn, which is not "
-            "ported yet; the brute-force search serves cells=None")
+    the radius is the median distance to the k-th neighbour. A cell-list
+    slot with no point (id ``n_points``) reads the last point's speed, as
+    the JAX package's clamped gather does."""
     dev = resolve_device(device)
     pts = as_f32(points, dev)
     speed = _speed(as_f32(values, dev))
-    neighbor = bruteforce_tile_fn(pts, k + 1)
+    if cells is not None:
+        if cells.device != pts.device:
+            raise ValueError(f"cells live on {cells.device}, not on "
+                             f"{pts.device}")
+        neighbor = celllist_tile_fn(cells, k + 1, rings)
+    else:
+        neighbor = bruteforce_tile_fn(pts, k + 1)
 
     def tile(q_tile):
         sq, idx = neighbor(q_tile)
         n_idx = idx[:, 1:]                 # drop self, the nearest
         n_sq = sq[:, 1:]
-        n_speeds = torch.where(n_idx >= 0, speed[n_idx.clamp_min(0)],
-                               torch.nan)
+        n_speeds = torch.where(
+            n_idx >= 0, speed[n_idx.clamp(0, speed.shape[0] - 1)], torch.nan)
         med = nanmedian(n_speeds, dim=1)
         mad = nanmedian((n_speeds - med[:, None]).abs(), dim=1)
         kth = torch.sqrt(torch.clamp_min(n_sq[:, -1], 0.0))
@@ -245,12 +249,14 @@ def remove_outliers_knn(cloud: PointCloud, k: int = 25, threshold: float = 3.0,
                                                 k=k, threshold=threshold,
                                                 device=device)
         except RowCapacityError:
-            # pathologically clustered cloud: the JAX package falls back
-            # to its cell-list search, or to the streamed brute force when
-            # the cell list cannot bound its panel; the port has only the
-            # brute force, which is exact and memory-bounded
+            # pathologically clustered cloud: the generic cell-list search
+            # (its per-cell capacity is not bound by the scatter kernel's
+            # 1024-row padding), or the streamed brute force where even the
+            # cell list cannot bound its panel
+            cells = bounded_cell_list(cloud.points, k + 1, device=device)
             keep, radius = knn_mad_mask(cloud.points, cloud.values, k=k,
-                                        threshold=threshold, device=device)
+                                        threshold=threshold, cells=cells,
+                                        device=device)
     else:
         keep, radius = knn_mad_mask(cloud.points, cloud.values, k=k,
                                     threshold=threshold, device=device)

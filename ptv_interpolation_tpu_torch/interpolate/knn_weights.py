@@ -9,10 +9,11 @@ Counterpart of ``ptv_interpolation_tpu/interpolate/knn_weights.py``:
   shift by ``min d`` cancels under normalisation and keeps the f32 exp from
   underflowing to an all-zero row for queries far from the cloud.
 
-Scattered queries use exact brute-force kNN; grid targets use the
-block-centric paths of ``ops/grid_knn.py`` (the fused kernel, the
-one-phase kernel of ``backend='pallas'``, the streaming path, or the
-exact top-k gather path of ``exact_topk=True``).
+Scattered queries use exact brute-force kNN, or the generic cell-list
+search when a ``cells`` list is given; grid targets use the block-centric
+paths of ``ops/grid_knn.py`` (the fused kernel, the one-phase kernel of
+``backend='pallas'``, the streaming path, or the exact top-k gather path
+of ``exact_topk=True``). :func:`nearest_interpolate` is kNN with k = 1.
 """
 
 from __future__ import annotations
@@ -22,8 +23,11 @@ from typing import Callable
 
 import torch
 
-from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
-from ptv_interpolation_tpu_torch.ops.neighbors import (bruteforce_tile_fn,
+from ptv_interpolation_tpu_torch.device import (as_f32, flush_subnormal,
+                                                resolve_device)
+from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
+                                                       bruteforce_tile_fn,
+                                                       celllist_tile_fn,
                                                        map_query_tiles)
 
 _EPS = 1e-10
@@ -31,8 +35,11 @@ _EPS = 1e-10
 
 def _idw_weights(dist: torch.Tensor, power: float, ok=None) -> torch.Tensor:
     """Normalised IDW weights; ``ok`` masks invalid neighbour slots and
-    the weights renormalise over the valid ones."""
-    w = 1.0 / (dist ** power + _EPS)
+    the weights renormalise over the valid ones. Subnormal weights are 0,
+    as the JAX package's are: that decides the value of a query whose only
+    neighbours are the cell list's empty slots (d² = 3.4e38, weight
+    2.9e-39), which is 0."""
+    w = flush_subnormal(1.0 / (dist ** power + _EPS))
     if ok is not None:
         w = torch.where(ok, w, 0.0)
     return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-37)
@@ -59,6 +66,13 @@ def _sibson_weights(dist: torch.Tensor, ok=None) -> torch.Tensor:
     return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-37)
 
 
+def _gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values[idx]`` with ``idx`` clamped into range, as the JAX
+    package's gathers clamp: -1 (a missing neighbour) reads row 0, and the
+    cell list's empty-slot id ``n_points`` reads the last row."""
+    return values[idx.clamp(0, values.shape[0] - 1)]
+
+
 def _weighted_tile(neighbor_fn, values: torch.Tensor, weight_fn: Callable):
     def tile(q_tile):
         sq, idx = neighbor_fn(q_tile)
@@ -67,33 +81,68 @@ def _weighted_tile(neighbor_fn, values: torch.Tensor, weight_fn: Callable):
         # overflow f32 inside dist**power
         dist = torch.sqrt(torch.clamp_min(torch.where(ok, sq, 1.0), 0.0))
         w = weight_fn(dist, ok)                               # (T, k)
-        vals = values[idx.clamp_min(0)]                       # (T, k, C)
+        vals = _gather_rows(values, idx)                      # (T, k, C)
         return (w[..., None] * vals).sum(dim=1)               # exact f32
 
     return tile
 
 
+def _neighbor_fn(points: torch.Tensor, k: int, cells: CellList | None,
+                 rings: int, point_chunk: int):
+    """The cell-list search when ``cells`` is given (on the points'
+    device), else exact brute force."""
+    if cells is not None:
+        if cells.device != points.device:
+            raise ValueError(f"cells live on {cells.device}, not on "
+                             f"{points.device}")
+        return celllist_tile_fn(cells, k, rings)
+    return bruteforce_tile_fn(points, k, point_chunk)
+
+
 def idw_interpolate(points, values, queries, k: int = 50, power: float = 2.0,
+                    cells: CellList | None = None, rings: int = 1,
                     query_tile: int = 1024, point_chunk: int = 4096,
                     device="cuda") -> torch.Tensor:
-    """IDW interpolation of ``values`` (N, C) at ``queries`` (Q, 3), exact
-    brute-force kNN, on ``device``. Returns (Q, C)."""
+    """IDW interpolation of ``values`` (N, C) at ``queries`` (Q, 3) on
+    ``device``, by exact brute-force kNN or the cell-list search over
+    ``cells``. Returns (Q, C)."""
     dev = resolve_device(device)
     tile = _weighted_tile(
-        bruteforce_tile_fn(as_f32(points, dev), k, point_chunk),
+        _neighbor_fn(as_f32(points, dev), k, cells, rings, point_chunk),
         as_f32(values, dev), lambda d, ok: _idw_weights(d, power, ok))
     return map_query_tiles(tile, as_f32(queries, dev), query_tile)
 
 
 def sibson_interpolate(points, values, queries, k: int = 30,
+                       cells: CellList | None = None, rings: int = 1,
                        query_tile: int = 1024, point_chunk: int = 4096,
                        device="cuda") -> torch.Tensor:
     """Reference-parity "sibson" (smoothed-IDW) interpolation at
-    ``queries`` (Q, 3), exact brute-force kNN, on ``device``."""
+    ``queries`` (Q, 3) on ``device``, by exact brute-force kNN or the
+    cell-list search over ``cells``."""
     dev = resolve_device(device)
     tile = _weighted_tile(
-        bruteforce_tile_fn(as_f32(points, dev), k, point_chunk),
+        _neighbor_fn(as_f32(points, dev), k, cells, rings, point_chunk),
         as_f32(values, dev), _sibson_weights)
+    return map_query_tiles(tile, as_f32(queries, dev), query_tile)
+
+
+def nearest_interpolate(points, values, queries,
+                        cells: CellList | None = None, rings: int = 1,
+                        query_tile: int = 1024, point_chunk: int = 4096,
+                        device="cuda") -> torch.Tensor:
+    """Nearest-neighbour interpolation (``griddata(method='nearest')``):
+    kNN with k = 1 on ``device``. Returns (Q, C). With ``cells``, a query
+    whose neighbourhood holds no point reads the last point's values, as
+    the JAX package's clamped gather does."""
+    dev = resolve_device(device)
+    vals = as_f32(values, dev)
+    neighbor = _neighbor_fn(as_f32(points, dev), 1, cells, rings, point_chunk)
+
+    def tile(q_tile):
+        _, idx = neighbor(q_tile)
+        return _gather_rows(vals, idx[:, 0])
+
     return map_query_tiles(tile, as_f32(queries, dev), query_tile)
 
 

@@ -123,8 +123,9 @@ def _host_setup(points, values, grid: Grid, k: int, block, margin_factor,
     if cells is None:
         lo = pts.amin(dim=0).cpu().numpy()
     else:
-        if cells.device != dev:
-            raise ValueError(f"cells live on {cells.device}, not on {dev}")
+        if cells.device != pts.device:   # 'cuda' and 'cuda:0' are one
+            raise ValueError(f"cells live on {cells.device}, not on "
+                             f"{pts.device}")
         lo, inv_c = cell_meta_np(cells)
         cell_size = 1.0 / inv_c
     extent = np.maximum(hi - lo, 1e-12)

@@ -9,10 +9,13 @@ Counterpart of ``ptv_interpolation_tpu/ops/neighbors.py``:
 * :class:`CellList` / :func:`build_cell_list` — particles bucketed into a
   uniform voxel grid in CSR form (``starts`` + ``order`` +
   ``points_sorted``), the layout the grid kernels gather from, and
-  :func:`csr_candidate_panel`, the per-query cell-neighbourhood panel of
-  the repair's cell-list stage. Only the CSR layout is ported; the dense
-  per-cell ``table`` of the JAX package serves paths that are not ported
-  yet.
+  :func:`csr_candidate_panel`, the per-query cell-neighbourhood panel.
+* :func:`celllist_tile_fn` / :func:`knn_celllist` — the generic cell-list
+  search: the k nearest of each query's ``(2·rings+1)³`` cell
+  neighbourhood, exact whenever the k-th neighbour lies within
+  ``rings·cell_size``. The JAX package scores a dense per-cell ``table``;
+  the port scores the CSR panel, which holds the same candidates in the
+  same slot order. :func:`knn` chooses between the two searches.
 """
 
 from __future__ import annotations
@@ -30,6 +33,19 @@ _BIG = 3.4e38          # sentinel squared distance for missing neighbours
 _PAD_ROWS = 1024       # far-sentinel rows after the sorted points
 _SENTINEL = 1e19       # sentinel coordinate → d² ≈ 1e38, never selected
 _MAX_CELLS = 2 ** 22   # bound on the cell count (degenerate cell sizes)
+_MAX_PANEL = 16384     # bound on a query's (2r+1)³·cap candidate slots
+
+
+def _sq_dist(d: torch.Tensor) -> torch.Tensor:
+    """|d|² over the last axis (x, y, z) in f32, rounded as the JAX
+    package's ``jnp.sum(d ** 2, axis=-1)`` is on the CPU, where XLA forms
+    it as a chain of fused multiply-adds: fma(dz, dz, fma(dy, dy, dx·dx)),
+    each step rounded once. Each step runs in f64 here (the product of two
+    f32 values is exact there) and rounds to f32, which equals the fused
+    step unless the f64 sum itself rounds onto an f32 midpoint."""
+    x, y, z = d[..., 0], d[..., 1].double(), d[..., 2].double()
+    acc = (y * y + (x * x).double()).float()
+    return (z * z + acc.double()).float()
 
 
 def _pairwise_sq_dists(queries: torch.Tensor,
@@ -47,11 +63,26 @@ def _pairwise_sq_dists(queries: torch.Tensor,
     return torch.clamp_min(qq + pp[None, :] - 2.0 * qp, 0.0)
 
 
-def map_query_tiles(tile_fn, queries: torch.Tensor, query_tile: int):
+def map_query_tiles(tile_fn, queries: torch.Tensor, query_tile: int,
+                    progress=None, batch_tiles: int = 64):
     """Apply ``tile_fn`` to (≤ query_tile, 3) slices of ``queries`` and
-    concatenate each output of the result (a tensor or a tuple of them)."""
-    outs = [tile_fn(queries[s:s + query_tile])
-            for s in range(0, queries.shape[0], query_tile)]
+    concatenate each output of the result (a tensor or a tuple of them).
+
+    ``progress``: optional ``fn(done_queries, total_queries)`` callback,
+    called as the JAX package calls it: after every ``batch_tiles`` tiles
+    (the device synchronised first, so a line means work done), and once
+    more for a ragged tail; never when the queries fit in one batch."""
+    n_q = queries.shape[0]
+    starts = range(0, n_q, query_tile)
+    outs = []
+    for t, s in enumerate(starts):
+        outs.append(tile_fn(queries[s:s + query_tile]))
+        if progress is None or len(starts) <= batch_tiles:
+            continue
+        if (t + 1) % batch_tiles == 0 or t + 1 == len(starts):
+            if queries.device.type == "cuda":
+                torch.cuda.synchronize(queries.device)
+            progress(min((t + 1) * query_tile, n_q), n_q)
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
     return torch.cat(outs, dim=0)
@@ -82,7 +113,7 @@ def bruteforce_tile_fn(points: torch.Tensor, k: int, point_chunk: int = 4096):
         # the matmul expansion carries O(eps·|x|²) noise: recompute the
         # selected k distances directly, then re-sort ascending
         neigh = points[best_i.clamp_min(0)]                        # (T, k, 3)
-        exact = ((q_tile[:, None, :] - neigh) ** 2).sum(dim=-1)
+        exact = _sq_dist(q_tile[:, None, :] - neigh)
         best_d = torch.where(best_i >= 0, exact, best_d)
         best_d, order = torch.sort(best_d, dim=1, stable=True)
         return best_d, torch.gather(best_i, 1, order)
@@ -208,6 +239,20 @@ def build_cell_list(points, cell_size: float | None = None, k_hint: int = 32,
     )
 
 
+def bounded_cell_list(points, k_hint: int, rings: int = 1,
+                      device="cuda") -> CellList | None:
+    """:func:`build_cell_list` for the generic search, or None when a
+    query's ``(2·rings+1)³·cap`` candidate slots would exceed 16 384: on
+    clustered clouds the auto cell size can hold thousands of points per
+    cell, and ``cap`` is a global maximum that refining the cells cannot
+    bound. The caller then takes the streamed brute force, exact and
+    memory-bounded, as the JAX package does."""
+    cells = build_cell_list(points, k_hint=k_hint, device=device)
+    if (2 * rings + 1) ** 3 * cells.cap > _MAX_PANEL:
+        return None
+    return cells
+
+
 def cell_meta_np(cells: CellList):
     """(origin, inv) as host values."""
     return np.asarray(cells.origin_host, np.float32), float(cells.inv_host)
@@ -222,7 +267,7 @@ def csr_candidate_panel(cells: CellList, q_tile: torch.Tensor, rings: int):
 
     Returns ``(cand, d2)``, both (T, n_offsets·cap), slots ordered by
     neighbour cell (z slowest, x fastest) and lane, as the JAX package
-    orders them."""
+    orders them; d² rounded as :func:`_sq_dist` rounds it."""
     ncx, ncy, ncz = cells.dims
     cap = cells.cap
     n_sent = cells.n_points
@@ -246,11 +291,118 @@ def csr_candidate_panel(cells: CellList, q_tile: torch.Tensor, rings: int):
     cand = s[..., None] + lane                                     # (T, n_off, cap)
     ok = in_range[..., None] & (cand < e[..., None])
     cand = torch.where(ok, cand, n_sent).reshape(T, -1)
-    p = cells.points_sorted[cand]
-    d = q_tile[:, None, 0] - p[..., 0]
-    d2 = d * d
-    d = q_tile[:, None, 1] - p[..., 1]
-    d2 = d2 + d * d
-    d = q_tile[:, None, 2] - p[..., 2]
-    d2 = d2 + d * d
+    d2 = _sq_dist(q_tile[:, None, :] - cells.points_sorted[cand])
     return cand, torch.where(cand == n_sent, _BIG, d2)
+
+
+def _exact_only(exact_topk: bool, recall_target) -> None:
+    if not exact_topk or recall_target is not None:
+        raise NotImplementedError(
+            "approximate selection (approx_min_k, recall_target) has no "
+            "PyTorch counterpart and is not ported; exact_topk=True serves")
+
+
+def _select_slot_order(d2: torch.Tensor, kk: int):
+    """The kk smallest of each row of ``d2``, ascending, ties in slot order
+    — what ``lax.top_k`` gives, and ``approx_min_k`` off the TPU, where it
+    is an exact sort: ``(sq, args)``. A stable sort of the whole row, so
+    that the slots chosen among ties at the kk-th value are the first."""
+    sq, args = torch.sort(d2, dim=-1, stable=True)
+    return sq[:, :kk], args[:, :kk]
+
+
+def celllist_csr_tile_fn(cells: CellList, k: int, rings: int = 1,
+                         exact_topk: bool = True, recall_target=None):
+    """Per-tile cell-list kNN through the CSR layout: ``fn(q_tile) ->
+    (sq_dists, idx_sorted)``, both (T, k), ascending, where
+    ``idx_sorted`` indexes the cell-sorted arrays (``points_sorted``, or
+    values sorted by ``cells.order``). Candidates are the
+    ``(2·rings+1)³·cap`` slots of :func:`csr_candidate_panel`; slots
+    beyond a cell's occupancy or outside the grid, and padding when the
+    panel holds fewer than k slots, point at the sentinel row
+    ``cells.n_points`` with d² = ``_BIG``. Exact whenever the k-th
+    neighbour lies within ``rings·cell_size`` of the query; beyond it, the
+    k nearest of the neighbourhood. Only exact selection is ported."""
+    _exact_only(exact_topk, recall_target)
+    n_offsets = (2 * rings + 1) ** 3
+    kk = min(k, n_offsets * cells.cap)
+    n_sent = cells.n_points
+
+    def per_tile(q_tile):
+        cand, d2 = csr_candidate_panel(cells, q_tile, rings)
+        sq, args = _select_slot_order(d2, kk)
+        idx = torch.gather(cand, 1, args)
+        if kk < k:
+            T = q_tile.shape[0]
+            sq = torch.cat([sq, sq.new_full((T, k - kk), _BIG)], dim=1)
+            idx = torch.cat([idx, idx.new_full((T, k - kk), n_sent)], dim=1)
+        return sq, idx
+
+    return per_tile
+
+
+def celllist_tile_fn(cells: CellList, k: int, rings: int = 1,
+                     exact_topk: bool = True, recall_target=None):
+    """Per-tile cell-list kNN closure: ``fn(q_tile) -> (sq_dists, idx)``
+    with original point ids, the JAX package's search over its dense
+    per-cell ``table``. That table holds, cell by cell, the same
+    candidates in the same slot order as the CSR panel (a cell's rank
+    follows the stable sort), so the search runs on
+    :func:`celllist_csr_tile_fn` and maps through ``cells.order``.
+
+    As in the JAX package, a slot with no point (an empty lane, a cell
+    outside the grid) carries id ``n_points`` and d² = ``_BIG`` when it is
+    selected, which happens when the neighbourhood holds fewer than k
+    points; when the panel itself has fewer than k slots, the missing ones
+    carry id -1. Callers clamp these ids into range as the JAX package's
+    gathers do. Only exact selection is ported."""
+    _exact_only(exact_topk, recall_target)
+    n = cells.n_points
+    kk = min(k, (2 * rings + 1) ** 3 * cells.cap)
+    sorted_fn = celllist_csr_tile_fn(cells, kk, rings)
+    order = torch.cat([cells.order.long(),
+                       torch.full((1,), n, dtype=torch.int64,
+                                  device=cells.device)])
+
+    def per_tile(q_tile):
+        sq, idx_sorted = sorted_fn(q_tile)
+        idx = order[idx_sorted]                  # the sentinel row → n
+        if kk < k:
+            T = q_tile.shape[0]
+            sq = torch.cat([sq, sq.new_full((T, k - kk), _BIG)], dim=1)
+            idx = torch.cat([idx, idx.new_full((T, k - kk), -1)], dim=1)
+        return sq, idx
+
+    return per_tile
+
+
+def knn_celllist(cells: CellList, queries, k: int, rings: int = 1,
+                 query_tile: int = 512):
+    """kNN against a prebuilt :class:`CellList` (see
+    :func:`celllist_tile_fn`), on the cell list's device. Returns
+    ``(dists, idx)``, (Q, k); padding slots (id -1) are inf-distance."""
+    qs = as_f32(queries, cells.device)
+    sq, idx = map_query_tiles(celllist_tile_fn(cells, k, rings), qs,
+                              query_tile)
+    return torch.where(idx < 0, torch.inf, torch.sqrt(sq)), idx
+
+
+def knn(points, queries, k: int, method: str = "auto", device="cuda",
+        **kwargs):
+    """One neighbour primitive on ``device``: 'bruteforce' (exact),
+    'celllist' (scalable), or 'auto' (brute force when Q·N ≤ 2³¹, else
+    the cell list). ``kwargs`` go to the chosen search; for 'celllist',
+    ``cells`` (prebuilt), ``cell_size``, and ``rings``."""
+    dev = resolve_device(device)
+    n_pts, n_q = int(points.shape[0]), int(queries.shape[0])
+    if method == "auto":
+        method = "bruteforce" if n_pts * n_q <= 2 ** 31 else "celllist"
+    if method == "bruteforce":
+        return knn_bruteforce(points, queries, k, device=dev, **kwargs)
+    if method == "celllist":
+        cells = kwargs.pop("cells", None)
+        if cells is None:
+            cells = build_cell_list(points, cell_size=kwargs.get("cell_size"),
+                                    k_hint=k, device=dev)
+        return knn_celllist(cells, queries, k, rings=kwargs.get("rings", 1))
+    raise ValueError(f"unknown knn method {method!r}")

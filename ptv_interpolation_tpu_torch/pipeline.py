@@ -4,9 +4,9 @@ Counterpart of ``ptv_interpolation_tpu/pipeline.py``, stage for stage:
 CSV load → alignment transforms → mask load/crop → domain and outlier
 filtering → grid construction → boundary particles → interpolation →
 mask zeroing → divergence cleaning (``divergence_free``, projection or
-variational) → NPZ/TIFF artifacts. Of the interpolation methods only
-``sibson`` and ``idw`` are ported; the config's other choices raise
-``NotImplementedError`` before any work starts.
+variational) → NPZ/TIFF artifacts. Every ``method`` of the config runs:
+linear (the default), nearest, rbf (local or global), idw, sibson, and
+cubic as local RBF under ``cubic_fallback``.
 
 Host code handles I/O and the dynamic-shape compactions (the cloud is a
 host :class:`PointCloud`, the mask a numpy array); the numeric stages run
@@ -27,7 +27,7 @@ from ptv_interpolation_tpu_torch.grid import (create_grid,
                                               extract_boundary_particles,
                                               sample_mask_on_grid)
 from ptv_interpolation_tpu_torch.interpolate.dispatch import (
-    _PORTED_METHODS, interpolate_field)
+    interpolate_field)
 from ptv_interpolation_tpu_torch.io import (FieldResult, PointCloud,
                                             load_mask, load_ptv_data,
                                             save_field_npz, save_field_tiff)
@@ -139,10 +139,6 @@ def run_pipeline(config: PipelineConfig,
     ``torch.profiler`` trace written there."""
     from ptv_interpolation_tpu_torch.utils import StageTimings, profiler_trace
 
-    if config.method not in _PORTED_METHODS:
-        raise NotImplementedError(
-            f"method={config.method!r} is not ported yet (ported: idw, "
-            f"sibson; the others are ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     if timings is None:
         timings = StageTimings()
@@ -233,9 +229,12 @@ def _run_pipeline_stages(config: PipelineConfig, cloud, mask_raw, timings,
     with T("interpolate"):
         U, V, W = interpolate_field(
             cloud.points, cloud.values, grid, method=config.method,
-            idw_power=config.idw_power, idw_neighbors=config.idw_neighbors,
-            sibson_neighbors=config.sibson_neighbors, verbose=v,
-            tau_mode=config.tau_mode,
+            rbf_neighbors=config.rbf_neighbors, rbf_kernel=config.rbf_kernel,
+            smoothing=config.smoothing, idw_power=config.idw_power,
+            idw_neighbors=config.idw_neighbors,
+            sibson_neighbors=config.sibson_neighbors,
+            cubic_fallback=config.cubic_fallback, verbose=v,
+            tau_mode=config.tau_mode, tri_cache_dir=config.tri_cache_dir,
             # solid voxels are zeroed in step 7 — exact repair of uncovered
             # solid-interior nodes would be discarded work
             skip_mask=(~mask if mask_raw is not None else None), device=dev)

@@ -13,6 +13,8 @@ from ptv_interpolation_tpu.ops.grid_knn import (
 from ptv_interpolation_tpu_torch import filtering as tf
 from ptv_interpolation_tpu_torch.io.csvio import PointCloud
 from ptv_interpolation_tpu_torch.ops.grid_knn import scatter_knn_apply
+from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
 
@@ -188,9 +190,67 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="approx_min_k"):
         tf.knn_mad_mask_scatter(cloud.points, cloud.values, k=4,
                                 recall_target=0.95, device="cpu")
-    with pytest.raises(NotImplementedError, match="celllist_tile_fn"):
-        tf.knn_mad_mask(cloud.points, cloud.values, k=4, cells=object(),
-                        device="cpu")
+
+
+def _clustered_cloud():
+    """``torch_port_fixtures.clustered`` with 30 outliers planted ×8."""
+    pts, vals, _, _ = fx.clustered()
+    vals = vals.copy()
+    vals[np.random.default_rng(4).choice(len(vals), 30, replace=False)] *= 8.0
+    return pts, vals
+
+
+@pytest.mark.parametrize("k", [10, 25])
+def test_knn_mad_mask_cells_matches_jax(k):
+    """``knn_mad_mask(cells=...)`` over the cell-list search: the same
+    keep flags as the JAX package's on the clustered cloud (empty slots
+    read the last point's speed on both sides), radius within 1e-6."""
+    from ptv_interpolation_tpu.ops.neighbors import build_cell_list as jbcl
+    pts, vals = _clustered_cloud()
+    jk, jr = jf.knn_mad_mask(pts, vals, k=k, threshold=3.0,
+                             cells=jbcl(pts, k_hint=k + 1))
+    tk, tr = tf.knn_mad_mask(pts, vals, k=k, threshold=3.0,
+                             cells=build_cell_list(pts, k_hint=k + 1,
+                                                   device="cpu"),
+                             device="cpu")
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    assert not tk.numpy().all()
+    assert float(tr) == pytest.approx(float(jr), rel=1e-6)
+
+
+@pytest.mark.parametrize("k,uses_cells", [(10, True), (25, False)])
+def test_row_capacity_fallback_uses_the_cell_list(monkeypatch, k,
+                                                  uses_cells):
+    """When the scatter kernel refuses a clustered cloud
+    (``RowCapacityError``), ``remove_outliers_knn`` falls back to the
+    cell-list search, or to brute force where 27·cap > 16384 (k = 25
+    here), as the JAX package does, and keeps the same points."""
+    import ptv_interpolation_tpu.filtering as jax_filtering
+    from ptv_interpolation_tpu.ops.grid_knn import (
+        RowCapacityError as JaxRowCapacityError)
+    from ptv_interpolation_tpu_torch.ops.grid_knn import RowCapacityError
+
+    def refuse(error):
+        def scatter(*a, **kw):
+            raise error("cloud too clustered")
+        return scatter
+
+    monkeypatch.setattr(jax_filtering, "knn_mad_mask_scatter",
+                        refuse(JaxRowCapacityError))
+    monkeypatch.setattr(tf, "knn_mad_mask_scatter", refuse(RowCapacityError))
+    seen = []
+    mask = tf.knn_mad_mask
+    monkeypatch.setattr(tf, "knn_mad_mask", lambda *a, **kw: (
+        seen.append(kw["cells"]), mask(*a, **kw))[1])
+    pts, vals = _clustered_cloud()
+    jout = jf.remove_outliers_knn(JaxCloud(pts, vals), k=k, threshold=3.0,
+                                  use_celllist=True, verbose=False)
+    tout = tf.remove_outliers_knn(PointCloud(pts, vals), k=k, threshold=3.0,
+                                  use_celllist=True, verbose=False,
+                                  device="cpu")
+    assert (seen[0] is not None) == uses_cells
+    assert len(tout) < len(pts)
+    np.testing.assert_array_equal(tout.points, jout.points)
 
 
 def test_small_cloud_skips():

@@ -50,8 +50,9 @@ def test_resolve_device_policy():
 
 def test_port_never_imports_jax():
     """Importing the port and running its slices end to end (the grid
-    entry points and the pipeline with variational cleaning) leaves every
-    ``jax`` module out of ``sys.modules``."""
+    entry points, the pipeline with variational cleaning, every other
+    interpolation method and the datasets) leaves every ``jax`` module out
+    of ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -84,6 +85,16 @@ def test_port_never_imports_jax():
             cloud=PointCloud(pts, vals), mask_raw=fluid, device="cpu")
         assert np.isfinite(res.u).all() and (res.u[~res.mask] == 0).all()
         assert res.has_dual
+        from ptv_interpolation_tpu_torch.datasets import cylinders
+        from ptv_interpolation_tpu_torch.interpolate import interpolate_field
+        for method, kw in (("linear", {}), ("nearest", {}),
+                           ("rbf", dict(rbf_neighbors=12)),
+                           ("rbf", dict(rbf_neighbors=None,
+                                        rbf_kernel="gaussian"))):
+            u, v, w = interpolate_field(pts[:300], vals[:300], grid,
+                                        method=method, device="cpu", **kw)
+            assert u.shape == (12, 12, 12)
+        cyl, _, _ = cylinders.generate(n_points=200)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
         print("JAX_MODULES", loaded)

@@ -3,6 +3,7 @@ and the exact top-k gather path (``exact_topk=True``) against the JAX
 package on the same inputs: one cell list carried across for the stages,
 the entry points end to end for the routes."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,7 +194,9 @@ def test_subset_evaluators_match_jax():
 
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
 def test_celllist_repair_eval_csr_matches_jax(mode):
-    """The cell-list CSR stage: the candidate panel bit for bit, ``good``
+    """The cell-list CSR stage: the candidate panel bit for bit against
+    the JAX package's panel as it runs, compiled (XLA fuses its d² sum
+    into a chain of FMAs, which the port rounds alike), ``good``
     identical, the values within f32 tolerance."""
     s = _setup(fx.corner_slab())
     rng = np.random.default_rng(3)
@@ -202,7 +205,8 @@ def test_celllist_repair_eval_csr_matches_jax(mode):
     cell_size = 1.0 / float(s["cells"].inv_host)
     rings = int(np.ceil(1.6 * float(s["margin"]) / cell_size))
     guard = rings * cell_size
-    cand, d2 = csr_candidate_panel(s["cells"], jnp.asarray(q), rings)
+    cand, d2 = jax.jit(csr_candidate_panel, static_argnums=2)(
+        s["cells"], jnp.asarray(q), rings)
     tcand, td2 = tnb.csr_candidate_panel(s["tcells"], _torch(q), rings)
     np.testing.assert_array_equal(tcand.numpy(), np.asarray(cand))
     np.testing.assert_array_equal(td2.numpy(), np.asarray(d2))

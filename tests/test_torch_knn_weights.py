@@ -172,3 +172,99 @@ def test_cuda_device_raises_without_a_gpu():
                                     device="cuda")
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         tkw.idw_interpolate(pts, vals, pts[:4], k=8, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# The generic paths over the cell-list search, and nearest
+# ---------------------------------------------------------------------------
+
+def _cells_pair(pts, k):
+    from ptv_interpolation_tpu.ops.neighbors import build_cell_list as jbcl
+    from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+    return jbcl(pts, k_hint=k), build_cell_list(pts, k_hint=k, device="cpu")
+
+
+def _queries(bounds, n=800, seed=12):
+    hi = np.asarray([b[1] for b in bounds], np.float32)
+    return np.random.default_rng(seed).uniform(-1.0, hi + 1.0,
+                                               size=(n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud", ["uniform", "clustered", "void_region",
+                                   "ragged"])
+@pytest.mark.parametrize("mode", ["idw", "sibson", "nearest"])
+def test_celllist_interpolate_matches_jax(cloud, mode):
+    """``cells=`` on the scattered entry points: nearest bit for bit (the
+    search's ids are), idw and sibson within rtol 1e-5 / atol 1e-6 (sums
+    in another order). Empty slots read the last point, as in JAX."""
+    pts, vals, bounds, n = getattr(fx, cloud)()
+    q = _queries(bounds)
+    k = {"idw": 12, "sibson": 10, "nearest": 1}[mode]
+    jc, tc = _cells_pair(pts, k)
+    if mode == "nearest":
+        want = jkw.nearest_interpolate(pts, vals, q, cells=jc)
+        got = tkw.nearest_interpolate(pts, vals, q, cells=tc, device="cpu")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    jfn, tfn = ((jkw.idw_interpolate, tkw.idw_interpolate) if mode == "idw"
+                else (jkw.sibson_interpolate, tkw.sibson_interpolate))
+    want = jfn(pts, vals, q, k=k, cells=jc)
+    got = tfn(pts, vals, q, k=k, cells=tc, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_empty_slots_read_the_last_point():
+    """A neighbourhood of fewer than k points (cells of 0.6 on the void
+    cloud): the empty slots (id n, d² 3.4e38) are weighted as the JAX
+    package weights them and read the last point's values."""
+    from ptv_interpolation_tpu.ops.neighbors import build_cell_list as jbcl
+    from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+    pts, vals, bounds, n = fx.void_region()
+    q = _queries(bounds, 400)
+    jc = jbcl(pts, cell_size=0.6)
+    tc = build_cell_list(pts, cell_size=0.6, device="cpu")
+    for jfn, tfn, kw in ((jkw.idw_interpolate, tkw.idw_interpolate,
+                          dict(k=20)),
+                         (jkw.sibson_interpolate, tkw.sibson_interpolate,
+                          dict(k=20))):
+        want = np.asarray(jfn(pts, vals, q, cells=jc, **kw))
+        got = tfn(pts, vals, q, cells=tc, device="cpu", **kw).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    want = jkw.nearest_interpolate(pts, vals, q, cells=jc)
+    got = tkw.nearest_interpolate(pts, vals, q, cells=tc, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # a query whose neighbourhood is empty reads the last point
+    far = np.asarray([[8.0, 8.0, 16.5]], np.float32)
+    tc_far = build_cell_list(pts, cell_size=0.6, device="cpu")
+    assert bool((tkw.nearest_interpolate(pts, vals, far, cells=tc_far,
+                                         device="cpu")[0]
+                 == torch.from_numpy(vals[-1])).all())
+
+
+def test_nearest_bruteforce_matches_jax():
+    pts, vals, bounds, n = fx.uniform()
+    q = _queries(bounds)
+    want = jkw.nearest_interpolate(pts, vals, q, query_tile=256)
+    got = tkw.nearest_interpolate(pts, vals, q, query_tile=256, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_nearest_celllist_differs_from_exact_as_jax_does():
+    """The cell-list search is exact only within the ring radius: at
+    k_hint = 1 on 40 000 uniform points a few queries' nearest point lies
+    beyond it. The port picks the JAX package's point on every query, so
+    it differs from an f64 cKDTree on the same queries as JAX does."""
+    from scipy.spatial import cKDTree
+    rng = np.random.default_rng(40)
+    pts = rng.uniform(0, 40, size=(40_000, 3)).astype(np.float32)
+    vals = np.arange(len(pts), dtype=np.float32)[:, None]
+    q = rng.uniform(0, 40, size=(50_000, 3)).astype(np.float32)
+    jc, tc = _cells_pair(pts, 1)
+    want = np.asarray(jkw.nearest_interpolate(pts, vals, q, cells=jc))
+    got = tkw.nearest_interpolate(pts, vals, q, cells=tc,
+                                  device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    exact = cKDTree(pts.astype(np.float64)).query(q.astype(np.float64))[1]
+    off = got[:, 0] != exact
+    assert 0 < off.sum() < 0.002 * len(q)
