@@ -85,7 +85,27 @@ and the script exits non-zero:
    cold run (Qhull, timed apart) and two warm ones, the solid exactly 0,
    the field against the device ``linear_interpolate`` on 20 000 fluid
    nodes. The generic paths'
-   launches and wall per query tile are printed for the record.
+   launches and wall per query tile are printed for the record;
+12. flow analysis, PyTorch ops with no kernel of their own: (a) the user's
+   two commands at the production configuration — phase 6's problem
+   written to CSV and TIFF, ``cli.main.main`` with the flags of
+   ``examples/porous_glass.py`` (kernels 1 and 2 launch here and count in
+   the record), then ``cli.analyze_flow.main`` with its defaults
+   (pressure, mesh drag, both permeabilities): both walls, the analysis
+   stage walls and the stats log; gated on the files written, finite
+   fields, strain/dissipation/vorticity exactly 0 on solid nodes, the
+   pressure solve converged and drag label 1's area > 0; (b)
+   ``run_analysis`` at 256³ on ``tools/profile_analysis.py``'s field
+   (flow type, pressure, mesh drag) — one warm-up and 3 timed runs, stage
+   walls, peak memory, CG iterations, triangle count, the drag stage split
+   into extraction and tractions, launches per pressure-CG iteration;
+   gated on strain and vorticity against f64 ``np.gradient`` (max |Δ| ≤
+   1e-4 of max|field|), the device mesh against the host extractor (the
+   same count, area within rtol 1e-4) and order-3 ``map_coordinates`` at
+   100 000 centroids against the CPU (rtol 1e-5); (c) the reference's
+   analytic validations: the Stokes sphere by mesh drag at 80³ and 160³
+   (force errors < 20%, P/V in [0.4, 0.6]) and Poiseuille pressure
+   recovery at 96³ (∇P within 10%).
 
 The script's wall is printed before the kernels' record. The second-to-last
 line of standard output is the kernels' JSON record
@@ -1704,8 +1724,8 @@ def phase_linear(torch, fluid, pts, vals):
 
 
 def phase_other_methods(torch):
-    log("== 11. the other interpolation methods (PyTorch ops; this slice "
-        "adds no kernel, so the kernels' line is phases 1-10's)")
+    log("== 11. the other interpolation methods (PyTorch ops with no "
+        "kernel of their own)")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("TF32 is on: the global RBF sums need full f32")
@@ -1718,6 +1738,356 @@ def phase_other_methods(torch):
     torch.cuda.empty_cache()
     fluid, pts, vals = make_pipeline_problem(n_tracks=LINEAR_TRACKS)[:3]
     phase_linear(torch, fluid, pts, vals)
+
+
+# ---------------------------------------------------------------------------
+# Flow analysis (phase 12): the two CLIs, run_analysis at 256³ and the
+# reference's analytic validations; PyTorch ops, no kernel of their own
+# ---------------------------------------------------------------------------
+
+ANALYSIS_N = 256
+DERIV_LIMIT = 1e-4       # strain, vorticity vs f64 np.gradient, of max|field|
+MESH_AREA_RTOL = 1e-4    # device mesh area vs the host extractor's
+SAMPLE_RTOL = 1e-5       # map_coordinates order 3, card vs CPU
+N_CENTROIDS = 100_000
+STOKES_LIMIT = 0.20      # tests/test_drag.py's bars
+POISEUILLE_LIMIT = 0.10  # tests/test_analysis.py's bar
+
+
+def _cli_flags(csv, tif, npz):
+    """The pipeline CLI's flags for ``examples/porous_glass.py``'s
+    ``PipelineConfig``."""
+    return ["--input", csv, "--mask", tif, "--invert-mask",
+            "--method", "sibson", "--sibson-neighbors", "50",
+            "--downscale", "2", "--divergence-free",
+            "--cleaning-method", "variational", "--cleaning-lambda", "200",
+            "--iter", "5", "--boundary-particles", "--boundary-sampling", "50",
+            "--boundary-thickness", "2", "--filter-outliers",
+            "--filter-neighbors", "30", "--filter-threshold", "4",
+            "--filter-max-speed", "5", "--output-npz", npz, "--no-plot"]
+
+
+class _Recorder:
+    """Wraps ``module.<name>`` for the ``with`` block and keeps what
+    ``keep(result)`` returns for every call."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep, self.seen = module, name, keep, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            self.seen.append(self.keep(out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self.seen
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _solves():
+    """Records ``(iterations, converged)`` of every Poisson solve."""
+    from ptv_interpolation_tpu_torch import physics
+    return _Recorder(physics, "_solve_poisson_impl",
+                     lambda out: (int(out[1]), bool(out[2])))
+
+
+def _stage_line(stages):
+    return ", ".join(f"{n} {t:.4f}" for n, t in stages.items())
+
+
+def _check_solid_zero(results, fluid, what):
+    for k in ("strain_rate", "dissipation", "vorticity_magnitude"):
+        if np.count_nonzero(results[k][~fluid]):
+            raise AssertionError(f"{what}: {k} is not 0 on solid nodes")
+    bad = [k for k, a in results.items()
+           if isinstance(a, np.ndarray) and not np.isfinite(a).all()]
+    if bad:
+        raise AssertionError(f"{what}: non-finite values in {bad}")
+
+
+def phase_cli(torch, fluid, pts, vals, dev="cuda"):
+    import contextlib
+    import io
+    import tempfile
+    from ptv_interpolation_tpu_torch.cli import analyze_flow
+    from ptv_interpolation_tpu_torch.cli import main as cli_main
+    from ptv_interpolation_tpu_torch.io import PointCloud, save_ptv_data
+    from ptv_interpolation_tpu_torch.io.tiff import write_tiff
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
+    from ptv_interpolation_tpu_torch.utils import StageTimings
+    log("== 12a. the two CLIs at the production configuration: "
+        "cli.main (porous_glass flags) then cli.analyze_flow (defaults)")
+    extra = [] if dev == "cuda" else ["--device", dev]
+    run_analysis = analyze_flow.run_analysis
+    seen = {}
+
+    def timed_analysis(config, **kw):
+        seen["timings"] = StageTimings()
+        seen["out"] = run_analysis(config, timings=seen["timings"], **kw)
+        return seen["out"]
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_ptv_data(os.path.join(tmp, "tracks.csv"), PointCloud(pts, vals))
+        write_tiff(os.path.join(tmp, "solid.tif"), ~fluid)
+        log(f"  wrote {len(pts)} tracks to CSV and the solid mask to TIFF "
+            f"in {time.perf_counter() - t0:.2f} s")
+        os.chdir(tmp)
+        analyze_flow.run_analysis = timed_analysis
+        try:
+            printed = io.StringIO()
+            fm._mad_eval.launches = 0
+            fg._fused_eval.launches = 0
+            with contextlib.redirect_stdout(printed):
+                _, wall_main = _synced(torch, lambda: cli_main.main(
+                    _cli_flags("tracks.csv", "solid.tif", "field.npz")
+                    + extra))
+            launches = (fm._mad_eval.launches, fg._fused_eval.launches)
+            with _solves() as solves, contextlib.redirect_stdout(printed):
+                _, wall_an = _synced(torch, lambda: analyze_flow.main(
+                    ["--input", "field.npz", "--no-interactive"] + extra))
+        finally:
+            analyze_flow.run_analysis = run_analysis
+            os.chdir(cwd)
+        names = ["field.npz", "field_analysis.npz", "field_strain.tif",
+                 "field_dissipation.tif", "field_vorticity.tif",
+                 "field_pressure.tif", "field_stats.txt"]
+        missing = [f for f in names if not os.path.exists(os.path.join(tmp, f))]
+        with np.load(os.path.join(tmp, "field_analysis.npz")) as npz:
+            npz_fields = {k: npz[k] for k in npz.files}
+    results, stats = seen["out"]
+    log(f"  cli.main: {wall_main:.4f} s; launches: fused_mad {launches[0]}, "
+        f"fused_grid_knn {launches[1]}")
+    log(f"  cli.analyze_flow: {wall_an:.4f} s; stages: "
+        + _stage_line(seen["timings"].stages))
+    log(f"  pressure solve: {solves[-1][0]} MG-PCG iterations, converged "
+        f"{solves[-1][1]}")
+    log("  stats log:")
+    for line in stats:
+        for part in line.splitlines():
+            log(f"    | {part}")
+    if missing:
+        raise AssertionError(f"12a: files not written: {missing}")
+    mask = npz_fields["mask"]
+    _check_solid_zero(results, mask, "12a")
+    if not all(np.isfinite(a).all() for a in npz_fields.values()):
+        raise AssertionError("12a: non-finite values in the analysis NPZ")
+    if not solves[-1][1]:
+        raise AssertionError("12a: the pressure solve did not converge")
+    if not results["drag"][1]["Area"] > 0:
+        raise AssertionError("12a: drag label 1 has no area")
+    if dev == "cuda" and min(launches) <= 0:
+        raise AssertionError("12a: the pipeline CLI did not launch both "
+                             "kernels")
+    log(f"  gates: {len(names)} files written, every field finite, strain, "
+        f"dissipation and vorticity 0 on {int((~mask).sum())} solid nodes, "
+        f"pressure converged, drag label 1 area "
+        f"{results['drag'][1]['Area']:.6e}")
+    return launches
+
+
+def analysis_field(n=ANALYSIS_N):
+    """``tools/profile_analysis.py::make_field``: a gyroid-like solid and
+    a smooth analytic velocity at n³. Returns ``(u, v, w, x, y, z,
+    fluid)``."""
+    ax = np.arange(n) - n / 2
+    Z, Y, X = np.meshgrid(ax, ax, ax, indexing="ij")
+    solid = (np.sin(X * 0.1) * np.sin(Y * 0.13) * np.sin(Z * 0.07)) > 0.55
+    fluid = ~solid
+    u = 0.05 * np.sin(X * 0.05) * fluid
+    v = 0.05 * np.cos(Y * 0.04) * fluid
+    w = (1.0 + 0.1 * np.sin(Z * 0.03)) * fluid
+    x = y = z = np.arange(n, dtype=np.float64)
+    return u, v, w, x, y, z, fluid
+
+
+def _f64_derivatives(u, v, w, fluid):
+    """Strain rate and vorticity magnitude in f64 with ``np.gradient``
+    (unit spacing), the formulas of ``analysis.py``, masked."""
+    gu, gv, gw = (np.gradient(a) for a in (u, v, w))     # (d/dz, d/dy, d/dx)
+    e = (2 * gu[2], 2 * gv[1], 2 * gw[0])
+    gamma = np.sqrt(0.5 * (e[0] ** 2 + e[1] ** 2 + e[2] ** 2)
+                    + (gu[1] + gv[2]) ** 2 + (gu[0] + gw[2]) ** 2
+                    + (gv[0] + gw[1]) ** 2)
+    vort = np.sqrt((gw[1] - gv[0]) ** 2 + (gu[0] - gw[2]) ** 2
+                   + (gv[2] - gu[1]) ** 2)
+    return gamma * fluid, vort * fluid
+
+
+def phase_analysis(torch, n=ANALYSIS_N, dev="cuda", n_centroids=N_CENTROIDS):
+    import tempfile
+    from ptv_interpolation_tpu_torch import drag
+    from ptv_interpolation_tpu_torch.analysis import compute_pressure_field
+    from ptv_interpolation_tpu_torch.analyze import AnalyzeConfig, run_analysis
+    from ptv_interpolation_tpu_torch.io import FieldResult
+    from ptv_interpolation_tpu_torch.ops.sampling import map_coordinates
+    from ptv_interpolation_tpu_torch.surface import (marching_tetrahedra,
+                                                     mesh_geometry_device,
+                                                     triangle_geometry)
+    from ptv_interpolation_tpu_torch.utils import StageTimings
+    log(f"== 12b. run_analysis at {n}³ (tools/profile_analysis.py's field; "
+        f"flow type, pressure, mesh drag)")
+    u, v, w, x, y, z, fluid = analysis_field(n)
+    field = FieldResult(x=x, y=y, z=z, u=u, v=v, w=w, mask=fluid)
+    geos = _Recorder(drag, "mesh_geometry_device", lambda out: out)
+    walls, stages = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, _solves() as solves, \
+            geos as meshes:
+        for i in range(4):
+            timings = StageTimings()
+            cfg = AnalyzeConfig(input="field.npz", flow_type=True,
+                                basename=os.path.join(tmp, "f"),
+                                verbose=False)
+            (results, _), wall = _synced(torch, lambda: run_analysis(
+                cfg, field=field, timings=timings, device=dev))
+            log(f"  {'warm-up' if i == 0 else f'run {i}'}: {wall:.4f} s; "
+                + _stage_line(timings.stages))
+            if i:
+                walls.append(wall)
+                stages.append(dict(timings.stages))
+    peak = torch.cuda.max_memory_allocated()
+    geo, n_tri = meshes[-1]
+    med = int(np.argsort(walls)[1])
+    log(f"  median wall {walls[med]:.4f} s (stages of that run: "
+        f"{_stage_line(stages[med])}); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"  pressure: {solves[-1][0]} MG-PCG iterations, converged "
+        f"{solves[-1][1]}; mesh: {n_tri} triangles (label 1, the fluid)")
+    if not solves[-1][1]:
+        raise AssertionError("12b: the pressure solve did not converge")
+    _check_solid_zero(results, fluid, "12b")
+
+    # the split of the drag stage: extraction + geometry, then tractions
+    u_d, v_d, w_d = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in (u, v, w))
+    p_d = torch.as_tensor(results["pressure"], device=dev)
+    label = torch.as_tensor(fluid, device=dev)
+    (geo2, _), t_mesh = _synced(torch, lambda: mesh_geometry_device(
+        label, 0.5, device=dev))
+    _, t_trac = _synced(torch, lambda: drag._mesh_tractions_t(
+        u_d, v_d, w_d, p_d, None, geo2["cz"], geo2["cy"], geo2["cx"],
+        geo2["nzp"], geo2["nyp"], geo2["nxp"], geo2["areas"],
+        (1.0, 1.0, 1.0), 0.001, False))
+    log(f"  drag split (synchronised): mesh extraction and geometry "
+        f"{t_mesh:.4f} s, tractions {t_trac:.4f} s")
+    launches, dev_ms = _device_launches(torch, lambda: compute_pressure_field(
+        u_d, v_d, w_d, 1.0, 1.0, 1.0, 0.001, mask=label, verbose=False,
+        device=dev))
+    if launches:
+        log(f"  pressure solve under the profiler: {launches} device "
+            f"launches, {dev_ms:.1f} ms busy; {launches / solves[-1][0]:.0f}"
+            f" launches per CG iteration")
+
+    # strain and vorticity against f64 np.gradient on the same f32 inputs
+    f64 = [np.asarray(a, np.float32).astype(np.float64) for a in (u, v, w)]
+    errs = []
+    for got, want in zip((results["strain_rate"],
+                          results["vorticity_magnitude"]),
+                         _f64_derivatives(*f64, fluid)):
+        errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    log(f"  strain rate, vorticity against f64 np.gradient: max |Δ| / "
+        f"max |field| {errs[0]:.3e}, {errs[1]:.3e} (limit {DERIV_LIMIT:.0e})")
+    if max(errs) > DERIV_LIMIT:
+        raise AssertionError("12b: derivative fields disagree with f64")
+
+    # the device mesh against the port's host extractor
+    t0 = time.perf_counter()
+    host = marching_tetrahedra(fluid.astype(np.float64), 0.5)
+    t_host = time.perf_counter() - t0
+    a_host = float(triangle_geometry(host)[1].sum())
+    a_dev = float(geo["areas"].double().sum())
+    rel = abs(a_dev - a_host) / a_host
+    log(f"  mesh: device {n_tri} triangles, host extractor {len(host)} "
+        f"({t_host:.2f} s on the host); area {a_dev:.6e} vs {a_host:.6e}, "
+        f"relative {rel:.3e} (limit {MESH_AREA_RTOL:.0e})")
+    if n_tri != len(host) or rel > MESH_AREA_RTOL:
+        raise AssertionError("12b: device mesh differs from the host's")
+
+    # Catmull-Rom sampling at triangle centroids, card against CPU
+    rng = np.random.default_rng(2)
+    sel = torch.as_tensor(rng.choice(n_tri, min(n_centroids, n_tri),
+                                     replace=False), device=geo["cz"].device)
+    coords = torch.stack([geo[c][sel] for c in ("cz", "cy", "cx")])
+    got = map_coordinates(w_d, coords, order=3).cpu().numpy()
+    want = map_coordinates(w_d.cpu(), coords.cpu(), order=3).numpy()
+    err = float(np.abs(got - want).max())
+    log(f"  map_coordinates order 3 at {len(want)} centroids, card vs CPU: "
+        f"max |Δ| {err:.3e}")
+    if not np.allclose(got, want, rtol=SAMPLE_RTOL,
+                       atol=SAMPLE_RTOL * np.abs(want).max()):
+        raise AssertionError("12b: map_coordinates differs from the CPU's")
+    return walls[med]
+
+
+def _stokes_sphere(nn, radius_vox):
+    """``tests/test_drag.py::stokes_sphere`` at ``nn``³, radius
+    ``radius_vox`` voxels."""
+    d, U_inf, mu = 1e-5, 0.1, 1e-3
+    radius = radius_vox * d
+    ax = (np.arange(nn) - nn / 2) * d
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    r = np.sqrt(x ** 2 + y ** 2 + z ** 2)
+    r = np.where(r == 0, 1e-20, r)
+    r_safe = np.maximum(r, radius * 0.5)
+    t1 = 0.75 * radius / r_safe
+    t2 = 0.25 * radius ** 3 / r_safe ** 3
+    w = U_inf * (1 - t1 * (1 + z ** 2 / r_safe ** 2)
+                 - t2 * (1 - 3 * z ** 2 / r_safe ** 2))
+    u = U_inf * (-t1 * (x * z / r_safe ** 2) + t2 * (3 * x * z / r_safe ** 2))
+    v = U_inf * (-t1 * (y * z / r_safe ** 2) + t2 * (3 * y * z / r_safe ** 2))
+    p = -1.5 * mu * radius * U_inf * z / r ** 3
+    return u, v, w, p, (r > radius).astype(int), d, mu, radius, U_inf
+
+
+def phase_validations(torch, dev="cuda", sizes=((80, 15), (160, 30)),
+                      pipe_n=96):
+    from ptv_interpolation_tpu_torch.analysis import compute_pressure_field
+    from ptv_interpolation_tpu_torch.drag import compute_interface_drag
+    log("== 12c. the reference's analytic validations on the card")
+    for nn, rv in sizes:
+        u, v, w, p, mask, d, mu, radius, U = _stokes_sphere(nn, rv)
+        res, wall = _synced(torch, lambda: compute_interface_drag(
+            u, v, w, p, mu, d, d, d, mask, method="mesh", device=dev))
+        r = res[1]
+        tv, tp = -4 * np.pi * mu * radius * U, -2 * np.pi * mu * radius * U
+        ev, ep = abs(r["Fz_v"] - tv) / abs(tv), abs(r["Fz_p"] - tp) / abs(tp)
+        ratio = abs(r["Fz_p"] / r["Fz_v"])
+        log(f"  Stokes sphere {nn}³, radius {rv} voxels: viscous force error "
+            f"{ev:.2%}, pressure force error {ep:.2%}, P/V {ratio:.3f} "
+            f"(limits {STOKES_LIMIT:.0%}, [0.4, 0.6]); {wall:.3f} s")
+        if ev >= STOKES_LIMIT or ep >= STOKES_LIMIT or not 0.4 < ratio < 0.6:
+            raise AssertionError("12c: Stokes sphere drag outside its bars")
+    d, mu, U_max = 20e-6, 1e-3, 1e-3
+    coords = np.arange(pipe_n) * d
+    z, y, x = np.meshgrid(coords, coords, coords, indexing="ij")
+    c = coords.mean()
+    radius = 15 * d * pipe_n / 40            # the test's 15 of 40 voxels
+    r2 = (y - c) ** 2 + (x - c) ** 2
+    mask = r2 < radius ** 2
+    w = np.where(mask, U_max * (1 - r2 / radius ** 2), 0.0)
+    zeros = np.zeros_like(w)
+    with _solves() as solves:
+        p, wall = _synced(torch, lambda: compute_pressure_field(
+            zeros, zeros, w, d, d, d, mu, mask=mask, wall_bc="inhomogeneous",
+            verbose=False, tol=1e-10, device=dev))
+    expected = -4 * mu * U_max / radius ** 2
+    dp_dz = np.gradient(p.cpu().numpy(), d, axis=0)
+    core = ((r2 < (0.5 * radius) ** 2) & (z > 5 * d * pipe_n / 40)
+            & (z < 35 * d * pipe_n / 40))
+    err = abs((dp_dz[core].mean() - expected) / expected)
+    log(f"  Poiseuille pipe {pipe_n}³: ∇P error {err:.3e} (limit "
+        f"{POISEUILLE_LIMIT:.0%}); {solves[-1][0]} CG iterations, converged "
+        f"{solves[-1][1]}; {wall:.3f} s")
+    if not err < POISEUILLE_LIMIT:
+        raise AssertionError("12c: Poiseuille pressure gradient outside 10%")
 
 
 def main():
@@ -1752,13 +2122,20 @@ def main():
     phase_other_routes(torch, K)
     fluid, pts, vals = problem[:3]
     clean_mad, clean_grid = phase_cleaning(torch, fluid, pts, vals, uncleaned)
-    del problem, fluid, pts, vals, uncleaned
+    del problem, uncleaned
     torch.cuda.empty_cache()
     phase_other_methods(torch)
+    torch.cuda.empty_cache()
+    cli_mad, cli_grid = phase_cli(torch, fluid, pts, vals)
+    del fluid, pts, vals
+    torch.cuda.empty_cache()
+    phase_analysis(torch)
+    torch.cuda.empty_cache()
+    phase_validations(torch)
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
-        f"(phase 6) + {clean_grid} (phase 10); fused_mad {mad_launches} "
-        f"(phase 6) + {clean_mad} (phase 10); pallas_grid_knn "
-        f"{pl_launches} (phase 8)")
+        f"(phase 6) + {clean_grid} (phase 10) + {cli_grid} (phase 12a); "
+        f"fused_mad {mad_launches} (phase 6) + {clean_mad} (phase 10) + "
+        f"{cli_mad} (phase 12a); pallas_grid_knn {pl_launches} (phase 8)")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -1766,7 +2143,7 @@ def main():
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_grid_knn.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_grid_knn.py:175",
-        "launches": launches + grid_launches + clean_grid,
+        "launches": launches + grid_launches + clean_grid + cli_grid,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1778,7 +2155,7 @@ def main():
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_mad.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_mad.py:93",
-        "launches": mad_launches + clean_mad,
+        "launches": mad_launches + clean_mad + cli_mad,
         "max_abs_err": mad_err,
         "ms": mad_ms,
         "plain_ms": mad_plain_ms,

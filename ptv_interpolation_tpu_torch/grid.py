@@ -1,8 +1,8 @@
 """Regular-grid core types, mask resampling and 6-connected morphology.
 
 Counterpart of ``ptv_interpolation_tpu/grid.py`` (``Grid``, ``create_grid``,
-``_axis_coords``, ``sample_mask_on_grid``, ``binary_dilation6``,
-``binary_erosion6``, ``extract_boundary_particles``). The conventions are
+``grid_from_mask_shape``, ``_axis_coords``, ``sample_mask_on_grid``,
+``binary_dilation6``, ``binary_erosion6``, ``extract_boundary_particles``). The conventions are
 load-bearing and kept unchanged:
 
 * Fields are stored ``(nz, ny, nx)``.
@@ -104,6 +104,22 @@ def create_grid(bounds: Bounds, resolution: Resolution) -> Grid:
         nx, ny, nz = (int(r) for r in resolution)
     b = tuple((float(lo), float(hi)) for (lo, hi) in bounds)
     return Grid(bounds=b, shape=(nz, ny, nx))
+
+
+def grid_from_mask_shape(mask_shape: Tuple[int, int, int],
+                         bounds: Bounds | None = None,
+                         downscale: float = 1.0) -> Grid:
+    """Grid covering a raw-mask volume, optionally downscaled
+    (reference ``main.py:104-119``)."""
+    nz, ny, nx = mask_shape
+    if bounds is None:
+        bounds = ((0.0, float(nx)), (0.0, float(ny)), (0.0, float(nz)))
+    resolution = (
+        max(1, int(round(nx / downscale))),
+        max(1, int(round(ny / downscale))),
+        max(1, int(round(nz / downscale))),
+    )
+    return create_grid(bounds, resolution)
 
 
 # --------------------------------------------------------------------------

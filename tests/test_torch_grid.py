@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from ptv_interpolation_tpu.grid import create_grid as jax_create_grid
+from ptv_interpolation_tpu.grid import (
+    grid_from_mask_shape as jax_grid_from_mask_shape)
 from ptv_interpolation_tpu_torch.device import resolve_device
-from ptv_interpolation_tpu_torch.grid import create_grid
+from ptv_interpolation_tpu_torch.grid import create_grid, grid_from_mask_shape
 
 torch.set_num_threads(2)
 
@@ -36,6 +38,23 @@ def test_grid_axes_and_spacing_match_jax(bounds, res):
     assert got.spacing == want.spacing
 
 
+@pytest.mark.parametrize("shape,bounds,downscale", [
+    ((486, 336, 322), None, 2.0),
+    ((64, 64, 64), None, 1.0),
+    ((7, 9, 11), ((2.0, 13.0), (1.0, 10.0), (0.0, 7.0)), 3.0),
+    ((3, 4, 5), None, 10.0),
+])
+def test_grid_from_mask_shape_matches_jax(shape, bounds, downscale):
+    want = jax_grid_from_mask_shape(shape, bounds, downscale)
+    got = grid_from_mask_shape(shape, bounds, downscale)
+    assert got.shape == want.shape and got.bounds == want.bounds
+    for axis in ("x", "y", "z"):
+        np.testing.assert_array_equal(getattr(got, axis), getattr(want, axis))
+    import ptv_interpolation_tpu_torch
+    assert ptv_interpolation_tpu_torch.grid_from_mask_shape is \
+        grid_from_mask_shape
+
+
 def test_resolve_device_policy():
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
@@ -51,8 +70,8 @@ def test_resolve_device_policy():
 def test_port_never_imports_jax():
     """Importing the port and running its slices end to end (the grid
     entry points, the pipeline with variational cleaning, every other
-    interpolation method and the datasets) leaves every ``jax`` module out
-    of ``sys.modules``."""
+    interpolation method, the datasets and the flow analysis with pressure
+    and mesh drag) leaves every ``jax`` module out of ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -95,6 +114,11 @@ def test_port_never_imports_jax():
                                         method=method, device="cpu", **kw)
             assert u.shape == (12, 12, 12)
         cyl, _, _ = cylinders.generate(n_points=200)
+        from ptv_interpolation_tpu_torch import AnalyzeConfig, run_analysis
+        results, _ = run_analysis(
+            AnalyzeConfig(flow_type=True, save_tiffs=False, save_stats=False,
+                          verbose=False), field=res, device="cpu")
+        assert results["drag"][1]["Area"] > 0
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
         print("JAX_MODULES", loaded)
