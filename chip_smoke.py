@@ -105,7 +105,29 @@ and the script exits non-zero:
    100 000 centroids against the CPU (rtol 1e-5); (c) the reference's
    analytic validations: the Stokes sphere by mesh drag at 80³ and 160³
    (force errors < 20%, P/V in [0.4, 0.6]) and Poiseuille pressure
-   recovery at 96³ (∇P within 10%).
+   recovery at 96³ (∇P within 10%);
+13. the post-hoc tools on the files 12a wrote, each command's wall
+   printed: ``view_divergence --no-plot`` (mean |div| before and after
+   cleaning against an f64 numpy divergence of the same fields, rtol
+   1e-4), ``plot_flux --no-show`` (Agg; the PNG written),
+   ``compare_results`` against twice-scaled, padded reference TIFFs (L2 <
+   1e-5), ``auto_align`` on phase 6's mask with 5 000 tracks shifted by
+   (3, −2, 4) (recovered within 2 voxels), and a checkpoint round trip of
+   the cleaned field on the card (bit for bit);
+14. ``sharded_grid_interpolate`` on the headline problem in two worlds of
+   spawned processes: 1 rank over NCCL and 2 ranks over gloo, both on
+   cuda:0 (the gathers staged through host memory) — a warm-up and 3
+   timed runs per world: the median wall per rank beside phase 4's, each
+   rank's store bytes against the whole store's, kernel 1's launches per
+   rank, the slabs' repair counts and ``n_left``, peak memory per rank,
+   and the largest |Δ| and count of differing nodes against phase 4's
+   output; gated on relative L2 ≤ 1e-6 against f64 scipy on phase 4's
+   20 000 interior nodes, ≥ 99.9% of values within rtol 1e-3 / atol 1e-4
+   of phase 4's output and each rank's window within (total/n + halo)·1.35
+   rows; then ``sharded_interpolate_values`` with cells on phase 9's
+   problem (idw k=12) over the 2 ranks, bit for bit against the
+   single-device ``interpolate_values``. The ranks' kernel-1 launches
+   count in the record.
 
 The script's wall is printed before the kernels' record. The second-to-last
 line of standard output is the kernels' JSON record
@@ -125,6 +147,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -451,12 +474,13 @@ def phase_main_path(torch, pts, vals, grid, k):
         rng.choice([0, n - 1], 4_000)
     corners = np.array([[z, y, x] for z in (0, n - 1) for y in (0, n - 1)
                         for x in (0, n - 1)])
+    refs = {}
     for what, idx in (("interior", interior),
                       ("face/edge/corner", np.concatenate([faces, corners]))):
         iz, iy, ix = idx.T
         queries = np.stack([grid.x[ix], grid.y[iy], grid.z[iz]],
                            axis=-1).astype(np.float32)
-        ref = scipy_reference_values(pts, vals, queries)
+        ref = refs[what] = scipy_reference_values(pts, vals, queries)
         ours = out[torch.as_tensor(iz), torch.as_tensor(iy),
                    torch.as_tensor(ix)].cpu().numpy().astype(np.float64)
         l2 = float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
@@ -465,7 +489,8 @@ def phase_main_path(torch, pts, vals, grid, k):
         if not l2 <= L2_LIMIT:
             raise AssertionError(f"relative L2 {l2:.3e} on {what} nodes "
                                  f"exceeds {L2_LIMIT:.0e}")
-    return launches
+    # for phase 14: the wall, the field and the interior gate's reference
+    return launches, wall, out.cpu().numpy(), (interior, refs["interior"])
 
 
 # ---------------------------------------------------------------------------
@@ -1003,19 +1028,13 @@ SMALL_N, SMALL_POINTS = 128, 125_000
 
 
 def phase_other_routes(torch, k):
-    from ptv_interpolation_tpu_torch.grid import create_grid
     from ptv_interpolation_tpu_torch.interpolate import (
         sibson_grid_interpolate)
     from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
     from ptv_interpolation_tpu_torch.ops import grid_knn as gk
     log(f"== 9. streaming and exact top-k routes, {SMALL_POINTS} points → "
         f"{SMALL_N}³")
-    rng = np.random.default_rng(0)
-    pts = rng.uniform(0, SMALL_N, size=(SMALL_POINTS, 3)).astype(np.float32)
-    vals = np.stack([np.sin(pts[:, 0] * 0.05), np.cos(pts[:, 1] * 0.04),
-                     1.0 + 0.1 * np.sin(pts[:, 2] * 0.03)],
-                    axis=-1).astype(np.float32)
-    grid = create_grid(((0, SMALL_N + 1),) * 3, SMALL_N)
+    pts, vals, grid = uniform_problem()
     for name, kw in (("backend='xla'", dict(backend="xla")),
                      ("exact_topk=True", dict(exact_topk=True))):
         gk.repair_empty_nodes.last_stages = None
@@ -1810,10 +1829,11 @@ def _check_solid_zero(results, fluid, what):
         raise AssertionError(f"{what}: non-finite values in {bad}")
 
 
-def phase_cli(torch, fluid, pts, vals, dev="cuda"):
+def phase_cli(torch, fluid, pts, vals, tmp, dev="cuda"):
+    """Phase 12a in the directory ``tmp``, where it leaves ``tracks.csv``,
+    ``solid.tif`` and ``field.npz`` for phase 13."""
     import contextlib
     import io
-    import tempfile
     from ptv_interpolation_tpu_torch.cli import analyze_flow
     from ptv_interpolation_tpu_torch.cli import main as cli_main
     from ptv_interpolation_tpu_torch.io import PointCloud, save_ptv_data
@@ -1833,35 +1853,34 @@ def phase_cli(torch, fluid, pts, vals, dev="cuda"):
         return seen["out"]
 
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        save_ptv_data(os.path.join(tmp, "tracks.csv"), PointCloud(pts, vals))
-        write_tiff(os.path.join(tmp, "solid.tif"), ~fluid)
-        log(f"  wrote {len(pts)} tracks to CSV and the solid mask to TIFF "
-            f"in {time.perf_counter() - t0:.2f} s")
-        os.chdir(tmp)
-        analyze_flow.run_analysis = timed_analysis
-        try:
-            printed = io.StringIO()
-            fm._mad_eval.launches = 0
-            fg._fused_eval.launches = 0
-            with contextlib.redirect_stdout(printed):
-                _, wall_main = _synced(torch, lambda: cli_main.main(
-                    _cli_flags("tracks.csv", "solid.tif", "field.npz")
-                    + extra))
-            launches = (fm._mad_eval.launches, fg._fused_eval.launches)
-            with _solves() as solves, contextlib.redirect_stdout(printed):
-                _, wall_an = _synced(torch, lambda: analyze_flow.main(
-                    ["--input", "field.npz", "--no-interactive"] + extra))
-        finally:
-            analyze_flow.run_analysis = run_analysis
-            os.chdir(cwd)
-        names = ["field.npz", "field_analysis.npz", "field_strain.tif",
-                 "field_dissipation.tif", "field_vorticity.tif",
-                 "field_pressure.tif", "field_stats.txt"]
-        missing = [f for f in names if not os.path.exists(os.path.join(tmp, f))]
-        with np.load(os.path.join(tmp, "field_analysis.npz")) as npz:
-            npz_fields = {k: npz[k] for k in npz.files}
+    t0 = time.perf_counter()
+    save_ptv_data(os.path.join(tmp, "tracks.csv"), PointCloud(pts, vals))
+    write_tiff(os.path.join(tmp, "solid.tif"), ~fluid)
+    log(f"  wrote {len(pts)} tracks to CSV and the solid mask to TIFF "
+        f"in {time.perf_counter() - t0:.2f} s")
+    os.chdir(tmp)
+    analyze_flow.run_analysis = timed_analysis
+    try:
+        printed = io.StringIO()
+        fm._mad_eval.launches = 0
+        fg._fused_eval.launches = 0
+        with contextlib.redirect_stdout(printed):
+            _, wall_main = _synced(torch, lambda: cli_main.main(
+                _cli_flags("tracks.csv", "solid.tif", "field.npz")
+                + extra))
+        launches = (fm._mad_eval.launches, fg._fused_eval.launches)
+        with _solves() as solves, contextlib.redirect_stdout(printed):
+            _, wall_an = _synced(torch, lambda: analyze_flow.main(
+                ["--input", "field.npz", "--no-interactive"] + extra))
+    finally:
+        analyze_flow.run_analysis = run_analysis
+        os.chdir(cwd)
+    names = ["field.npz", "field_analysis.npz", "field_strain.tif",
+             "field_dissipation.tif", "field_vorticity.tif",
+             "field_pressure.tif", "field_stats.txt"]
+    missing = [f for f in names if not os.path.exists(os.path.join(tmp, f))]
+    with np.load(os.path.join(tmp, "field_analysis.npz")) as npz:
+        npz_fields = {k: npz[k] for k in npz.files}
     results, stats = seen["out"]
     log(f"  cli.main: {wall_main:.4f} s; launches: fused_mad {launches[0]}, "
         f"fused_grid_knn {launches[1]}")
@@ -2090,6 +2109,375 @@ def phase_validations(torch, dev="cuda", sizes=((80, 15), (160, 30)),
         raise AssertionError("12c: Poiseuille pressure gradient outside 10%")
 
 
+
+# ---------------------------------------------------------------------------
+# The post-hoc tools, alignment and checkpoints (phase 13) and the sharded
+# grid path over ranks on the one card (phase 14)
+# ---------------------------------------------------------------------------
+
+TOOL_RTOL = 1e-4          # view_divergence (f32 on the card) vs f64 numpy
+COMPARE_L2_LIMIT = 1e-5   # tests/test_pipeline_e2e.py's bar
+ALIGN_SHIFT = np.asarray([3.0, -2.0, 4.0], np.float32)
+ALIGN_TRACKS = 5000
+ALIGN_ATOL = 2.0          # voxels, tests/test_pipeline_e2e.py's bar
+SHARD_CLOSE = 0.999       # share within rtol 1e-3 / atol 1e-4 (JAX tests)
+SHARD_MEM_SLACK = 1.35    # ±35% density fluctuation, tests/test_sharding.py
+SHARD_WORLD_TIMEOUT = 300
+
+
+def _np_roll_divergence(u, v, w, mask, dx, dy, dz):
+    """An f64 numpy copy of the diagnostics' 'roll' divergence
+    (``ops/stencils.py::consistent_divergence``): a face takes the mean of
+    its two cells where the upper one is fluid, else 0; the domain edges
+    take the own cell's value."""
+    def face(vel, axis, h):
+        n = vel.shape[axis]
+        lo = np.take(vel, np.arange(n - 1), axis)
+        hi = np.take(vel, np.arange(1, n), axis)
+        g = np.where(np.take(mask, np.arange(1, n), axis), (lo + hi) * 0.5,
+                     0.0)
+        f_next = np.concatenate([g, np.take(vel, [n - 1], axis)], axis)
+        f_prev = np.concatenate([np.take(vel, [0], axis), g], axis)
+        return (f_next - f_prev) / h
+    return face(u, 2, dx) + face(v, 1, dy) + face(w, 0, dz)
+
+
+def phase_tools(torch, tmp, pts, vals, dev="cuda"):
+    """Phase 13 on the files phase 12a left in ``tmp``."""
+    import contextlib
+    import importlib.util
+    import io
+    from ptv_interpolation_tpu_torch.cli import auto_align, tools
+    from ptv_interpolation_tpu_torch.io import (FieldResult, PointCloud,
+                                                load_velocity_field,
+                                                save_ptv_data)
+    from ptv_interpolation_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
+    from ptv_interpolation_tpu_torch.io.tiff import write_tiff
+    log("== 13. the post-hoc tools on phase 12a's NPZ, auto_align on phase "
+        "6's mask, a checkpoint round trip")
+    npz = os.path.join(tmp, "field.npz")
+    extra = [] if dev == "cuda" else ["--device", dev]
+
+    def run(fn, argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _synced(torch, lambda: fn(argv))
+
+    f = load_velocity_field(npz)
+    (m_init, m_clean), wall = run(tools.view_divergence,
+                                  [npz, "--no-plot"] + extra)
+    dx, dy, dz = f.spacing
+    ref = [float(np.abs(_np_roll_divergence(
+        *(np.asarray(a, np.float64) for a in uvw), f.mask, dx, dy,
+        dz)[f.mask]).mean()) for uvw in ((f.u_init, f.v_init, f.w_init),
+                                         (f.u, f.v, f.w))]
+    rel = max(abs(float(m_init) - ref[0]) / ref[0],
+              abs(float(m_clean) - ref[1]) / ref[1])
+    log(f"  view_divergence --no-plot: {wall:.4f} s; mean |div| "
+        f"{float(m_init):.6e} → {float(m_clean):.6e} (f64 numpy "
+        f"{ref[0]:.6e} → {ref[1]:.6e}; largest relative gap {rel:.2e}, "
+        f"limit {TOOL_RTOL:.0e})")
+    if not (rel <= TOOL_RTOL and m_clean < m_init):
+        raise AssertionError("13: view_divergence disagrees with f64 numpy "
+                             "or cleaning did not lower the divergence")
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        png = os.path.join(tmp, "flux.png")
+        stats, wall = run(tools.plot_flux,
+                          [npz, "--no-show", "-o", png] + extra)
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+        log(f"  plot_flux --no-show (Agg): {wall:.4f} s; flux.png {size} "
+            f"bytes; " + ", ".join(f"{k} mean {m:.4e} std {sd:.4e}"
+                                   for k, (m, sd) in stats.items()))
+        if size <= 0:
+            raise AssertionError("13: plot_flux wrote no PNG")
+    # the fluxes plot_flux plots, on the card, against f64 numpy
+    worst = 0.0
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for func, field, axes, (h1, h2) in (
+            (tools.calculate_flux_xy, f.w, (1, 2), (dx, dy)),
+            (tools.calculate_flux_xz, f.v, (0, 2), (dx, dz)),
+            (tools.calculate_flux_yz, f.u, (0, 1), (dy, dz))):
+        got = func(field, h1, h2, device=dev)
+        want = np.asarray(field, np.float64).sum(axis=axes) * h1 * h2
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    wall = time.perf_counter() - t0
+    log(f"  plot_flux's fluxes (calculate_flux_xy/xz/yz on {dev}): "
+        f"{wall:.4f} s; largest gap to f64 numpy {worst:.2e} of the "
+        f"largest |flux| (limit {TOOL_RTOL:.0e})"
+        + ("" if importlib.util.find_spec("matplotlib") else
+           "; matplotlib is not installed here, so plot_flux's PNG is "
+           "not drawn"))
+    if not worst <= TOOL_RTOL:
+        raise AssertionError("13: plot_flux's fluxes disagree with f64")
+
+    refs = []
+    for name, arr in (("u", f.u), ("v", f.v), ("w", f.w)):
+        refs.append(os.path.join(tmp, f"ref_{name}.tif"))
+        write_tiff(refs[-1], np.pad(np.asarray(arr, np.float32) * 2.0,
+                                    ((0, 2), (0, 2), (0, 2))))
+    l2, wall = run(tools.compare_results,
+                   ["--ptv", npz, "--ref-u", refs[0], "--ref-v", refs[1],
+                    "--ref-w", refs[2], "--no-plot"] + extra)
+    log(f"  compare_results against the twice-scaled, padded field: "
+        f"{wall:.4f} s; L2 {l2:.3e} (limit {COMPARE_L2_LIMIT:.0e})")
+    if not l2 < COMPARE_L2_LIMIT:
+        raise AssertionError(f"13: compare_results L2 {l2:.3e}")
+
+    rng = np.random.default_rng(2)
+    sel = rng.choice(len(pts), min(ALIGN_TRACKS, len(pts)), replace=False)
+    csv = os.path.join(tmp, "shifted.csv")
+    save_ptv_data(csv, PointCloud(pts[sel] + ALIGN_SHIFT, vals[sel]))
+    (best, score), wall = run(auto_align.main, [
+        "-i", csv, "-m", os.path.join(tmp, "solid.tif"), "--invert-mask"])
+    err = float(np.abs(np.asarray(best) + ALIGN_SHIFT).max())
+    log(f"  auto_align ({len(sel)} tracks shifted by "
+        f"{tuple(ALIGN_SHIFT.tolist())}, host scipy): {wall:.4f} s; offset "
+        f"{np.round(np.asarray(best), 3).tolist()}, score {score:.2f}; "
+        f"largest error {err:.3f} voxels (limit {ALIGN_ATOL})")
+    if not err <= ALIGN_ATOL:
+        raise AssertionError("13: auto_align did not recover the shift")
+
+    dev_t = torch.device(dev)
+    res = FieldResult(
+        x=f.x, y=f.y, z=f.z,
+        mask=torch.as_tensor(f.mask, device=dev_t),
+        **{n: torch.as_tensor(getattr(f, n), device=dev_t)
+           for n in ("u", "v", "w", "u_init", "v_init", "w_init")})
+    ckpt = os.path.join(tmp, "field.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, res)
+    back = load_checkpoint(ckpt, device=dev)
+    wall = time.perf_counter() - t0
+    names = ("u", "v", "w", "mask", "u_init", "v_init", "w_init")
+    same = all(torch.equal(getattr(back, n), getattr(res, n))
+               and getattr(back, n).device == getattr(res, n).device
+               for n in names) and all(
+        np.array_equal(getattr(back, a), getattr(f, a)) for a in "xyz")
+    log(f"  checkpoint of the cleaned field and its initial field "
+        f"({os.path.getsize(ckpt) / 2**20:.1f} MiB): save and load on {dev} "
+        f"{wall:.4f} s, bit for bit {same}")
+    if not same:
+        raise AssertionError("13: the checkpoint round trip changed a field")
+
+
+def uniform_problem(n_points=SMALL_POINTS, n=SMALL_N):
+    """``bench.make_problem``'s cloud and values with ``n_points`` points
+    in [0, n)³, and the n³ grid: phase 9's problem by default (125 000
+    points → 128³, the headline's density), the headline itself at 1M →
+    256³. Returns ``(pts, vals, grid)``."""
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, n, size=(n_points, 3)).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.05), np.cos(pts[:, 1] * 0.04),
+                     1.0 + 0.1 * np.sin(pts[:, 2] * 0.03)],
+                    axis=-1).astype(np.float32)
+    return pts, vals, create_grid(((0, n + 1),) * 3, n)
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _phase14_rank(rank, world, init, workdir, values_job):
+    """One rank of a phase-14 world, in a process of its own (spawned, so
+    it imports no JAX): the sharded headline path, a warm-up and 3 timed
+    runs, and with ``values_job`` the sharded query path on phase 9's
+    problem. Rank 0 saves the outputs; every rank pickles its numbers."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from bench import GRID_N, N_POINTS, K
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.ops.neighbors import bounded_cell_list
+    from ptv_interpolation_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, sharded_interpolate_values)
+    from ptv_interpolation_tpu_torch.parallel.mesh import all_gather_cat
+    from ptv_interpolation_tpu_torch.parallel.sharding import (
+        sharded_grid_interpolate)
+
+    initialize_distributed(init, world, rank)
+    try:
+        mesh = make_mesh()
+        pts, vals, grid = uniform_problem(N_POINTS, GRID_N)
+
+        def timed(fn):
+            if mesh.size > 1:
+                dist.barrier(group=mesh.group)
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(mesh.device)
+            return out, time.perf_counter() - t0
+
+        def run():
+            return sharded_grid_interpolate(pts, vals, grid, mesh,
+                                            method="sibson", k=K, block=BLOCK)
+
+        out, first = timed(run)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        fg._fused_eval.launches = 0
+        walls = []
+        for _ in range(3):
+            out, wall = timed(run)
+            walls.append(wall)
+        res = dict(backend=mesh.backend, device=str(mesh.device),
+                   first=first, walls=walls,
+                   launches=fg._fused_eval.launches,
+                   peak=torch.cuda.max_memory_allocated(mesh.device),
+                   stats=sharded_grid_interpolate.last_stats)
+        # the slabs' all-gather alone, as the path runs it (values + den)
+        rows = -(-(-(-grid.nz // world)) // BLOCK[0]) * BLOCK[0]
+        slab = out.new_empty((rows,) + out.shape[1:3] + (out.shape[3] + 1,))
+        res["gather"] = float(np.median([timed(
+            lambda: all_gather_cat(mesh, slab))[1] for _ in range(3)]))
+        if rank == 0:
+            np.save(os.path.join(workdir, f"grid{world}.npy"),
+                    out.cpu().numpy())
+        del out, slab
+        if values_job:
+            spts, svals, sgrid = uniform_problem()
+            cells = bounded_cell_list(spts, 12, 1, device=mesh.device)
+            vout, res["values_wall"] = timed(
+                lambda: sharded_interpolate_values(
+                    spts, svals, sgrid.flat_coords(mesh.device), mesh,
+                    method="idw", k=12, cells=cells))
+            if rank == 0:
+                np.save(os.path.join(workdir, "values.npy"),
+                        vout.cpu().numpy())
+        with open(os.path.join(workdir, f"rank{rank}-{world}.pkl"), "wb") as fh:
+            pickle.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_world(world, workdir, values_job):
+    """Spawn a phase-14 world and wait for it; a rank that fails or a
+    world that runs over its time ends the phase (every rank stopped)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    init = "file://" + os.path.join(workdir, f"store{world}")
+    ctx = mp.start_processes(_phase14_rank,
+                             args=(world, init, workdir, values_job),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + SHARD_WORLD_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"14: the {world}-rank world ran over "
+                                     f"{SHARD_WORLD_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}-{world}.pkl"), "rb") as fh:
+            ranks.append(pickle.load(fh))
+    return ranks
+
+
+def phase_sharded(torch, single_wall, single_out, interior_ref,
+                  worlds=(1, 2)):
+    """Phase 14: ``sharded_grid_interpolate`` on the headline problem in
+    worlds of ``worlds`` ranks — on one card a 1-rank world (NCCL) and a
+    2-rank world (gloo, both ranks on cuda:0); with a card per rank, NCCL
+    — then ``sharded_interpolate_values`` with cells over the last
+    world's ranks. Returns kernel 1's launches summed over every rank's 3
+    timed runs."""
+    from bench import GRID_N, N_POINTS, K
+    from ptv_interpolation_tpu_torch.interpolate import interpolate_values
+    n_cards = torch.cuda.device_count()
+    log(f"== 14. sharded_grid_interpolate over ranks on {n_cards} "
+        f"card(s): {N_POINTS} points → {GRID_N}³, sibson k={K}, block "
+        f"{BLOCK}; worlds of {', '.join(map(str, worlds))} ranks (NCCL "
+        f"where each rank has a card, else gloo staged through host "
+        f"memory)")
+    interior, ref = interior_ref
+    iz, iy, ix = interior.T
+    launches = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        for world in worlds:
+            t0 = time.perf_counter()
+            ranks = _run_world(world, workdir, world == worlds[-1])
+            log(f"  {world}-rank world: {time.perf_counter() - t0:.1f} s "
+                f"with process start-up; backend {ranks[0]['backend']}, "
+                f"devices {[r['device'] for r in ranks]}")
+            want = ("nccl" if world <= n_cards else "gloo", "cuda")
+            if any((r["backend"], r["device"].split(":")[0]) != want
+                   for r in ranks):
+                raise AssertionError(f"14: the {world}-rank world ran on "
+                                     f"{ranks[0]['backend']}, "
+                                     f"{ranks[0]['device']}; wanted {want}")
+            got = np.load(os.path.join(workdir, f"grid{world}.npy"))
+            walls = [float(np.median(r["walls"])) for r in ranks]
+            log(f"  median wall of 3 warm runs per rank "
+                f"{[round(w, 4) for w in walls]} s (first runs "
+                f"{[round(r['first'], 4) for r in ranks]} s); phase 4's "
+                f"single-device wall {single_wall:.4f} s; the slabs' "
+                f"all-gather alone {[round(r['gather'], 4) for r in ranks]} s")
+            st = [r["stats"] for r in ranks]
+            log(f"  store per rank {[s['store_bytes'] for s in st]} bytes "
+                f"of the whole store's {st[0]['whole_bytes']}; window rows "
+                f"{st[0]['n_loc']}, halo {st[0]['halo']:.4f}")
+            log(f"  kernel 1 launches per rank (3 runs) "
+                f"{[r['launches'] for r in ranks]}; uncovered "
+                f"{st[0]['uncovered']}, repaired per slab "
+                f"{st[0]['repaired']}, n_left {st[0]['n_left']}; peak device "
+                f"memory per rank "
+                f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
+            diff = np.abs(got - single_out)
+            close = float(np.isclose(got, single_out, rtol=1e-3,
+                                     atol=1e-4).mean())
+            n_diff = int((diff > 0).any(axis=-1).sum())
+            ours = got[iz, iy, ix].astype(np.float64)
+            l2 = float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
+            bound = N_POINTS * (1.0 / world + 2.0 * st[0]["halo"] / GRID_N) \
+                * SHARD_MEM_SLACK
+            log(f"  against the single-device output: largest |Δ| "
+                f"{diff.max():.3e}, {n_diff} nodes differ, {close:.6f} of "
+                f"values within rtol 1e-3 / atol 1e-4 (limit {SHARD_CLOSE}); "
+                f"relative L2 vs f64 scipy on {len(interior)} interior "
+                f"nodes {l2:.3e} (limit {L2_LIMIT:.0e}); largest window "
+                f"{max(st[0]['n_loc'])} rows (limit {bound:.0f})")
+            if not (close >= SHARD_CLOSE and l2 <= L2_LIMIT
+                    and max(st[0]["n_loc"]) < bound
+                    and min(r["launches"] for r in ranks) > 0):
+                raise AssertionError(f"14: the {world}-rank world failed a "
+                                     f"gate")
+            launches += sum(r["launches"] for r in ranks)
+            del got, diff
+
+        spts, svals, sgrid = uniform_problem()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = interpolate_values(spts, svals, sgrid.flat_coords("cuda"),
+                                  method="idw", idw_neighbors=12,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = np.load(os.path.join(workdir, "values.npy"))
+        same = np.array_equal(got, want.cpu().numpy())
+        log(f"  sharded_interpolate_values with cells, {SMALL_POINTS} points "
+            f"→ {SMALL_N}³, idw k=12, {worlds[-1]} ranks: "
+            f"{[round(r['values_wall'], 4) for r in ranks]} s per rank "
+            f"(single device {wall:.4f} s); bit for bit {same}")
+        if not same:
+            raise AssertionError("14: sharded_interpolate_values differs "
+                                 "from the single-device result")
+    return launches
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -2107,7 +2495,8 @@ def main():
     grid = create_grid(((0, GRID_N + 1),) * 3, GRID_N)
     max_err, ms, plain_ms, bound_ms, bound_by = phase_kernel(
         torch, pts, vals, grid, K)
-    launches = phase_main_path(torch, pts, vals, grid, K)
+    launches, single_wall, single_out, interior_ref = phase_main_path(
+        torch, pts, vals, grid, K)
     del pts, vals
     problem = make_pipeline_problem()
     mad_err, mad_ms, mad_plain_ms, mad_bound_ms, mad_bound_by = \
@@ -2126,14 +2515,21 @@ def main():
     torch.cuda.empty_cache()
     phase_other_methods(torch)
     torch.cuda.empty_cache()
-    cli_mad, cli_grid = phase_cli(torch, fluid, pts, vals)
+    with tempfile.TemporaryDirectory() as tmp:    # 12a's files, for 13
+        cli_mad, cli_grid = phase_cli(torch, fluid, pts, vals, tmp)
+        torch.cuda.empty_cache()
+        phase_analysis(torch)
+        torch.cuda.empty_cache()
+        phase_validations(torch)
+        torch.cuda.empty_cache()
+        phase_tools(torch, tmp, pts, vals)
     del fluid, pts, vals
     torch.cuda.empty_cache()
-    phase_analysis(torch)
-    torch.cuda.empty_cache()
-    phase_validations(torch)
+    shard_launches = phase_sharded(torch, single_wall, single_out,
+                                   interior_ref)
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
-        f"(phase 6) + {clean_grid} (phase 10) + {cli_grid} (phase 12a); "
+        f"(phase 6) + {clean_grid} (phase 10) + {cli_grid} (phase 12a) + "
+        f"{shard_launches} (phase 14, every rank); "
         f"fused_mad {mad_launches} (phase 6) + {clean_mad} (phase 10) + "
         f"{cli_mad} (phase 12a); pallas_grid_knn {pl_launches} (phase 8)")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
@@ -2143,7 +2539,8 @@ def main():
         "route": "cuda",
         "source": "ptv_interpolation_tpu_torch/ops/csrc/fused_grid_knn.cu",
         "replaces": "ptv_interpolation_tpu/ops/fused_grid_knn.py:175",
-        "launches": launches + grid_launches + clean_grid + cli_grid,
+        "launches": (launches + grid_launches + clean_grid + cli_grid
+                     + shard_launches),
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -84,7 +84,7 @@ class Grid:
     def n_points(self) -> int:
         return self.nx * self.ny * self.nz
 
-    def flat_coords(self, device="cpu") -> torch.Tensor:
+    def flat_coords(self, device="cuda") -> torch.Tensor:
         """All grid points as an (n_points, 3) f32 tensor of (x, y, z)
         rows on ``device``, in the C order of the (nz, ny, nx) layout."""
         dev = resolve_device(device)

@@ -136,11 +136,10 @@ def _panel_take(pts8_t: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 def _compact_gather(cells: CellList, values_sorted, axes, margin: float,
                     block: Tuple[int, int, int],
                     grid_shape: Tuple[int, int, int],
-                    mc: Tuple[int, int, int], C: int, ids=None,
-                    pts8_t=None) -> torch.Tensor:
+                    mc: Tuple[int, int, int], C: int,
+                    ids=None) -> torch.Tensor:
     """The fused kernel's candidate panel, (8, n_blocks·C) f32."""
-    if pts8_t is None:
-        pts8_t = _build_pts8_t(cells.points_sorted, values_sorted)
+    pts8_t = _build_pts8_t(cells.points_sorted, values_sorted)
     G = _compact_indices(cells, axes, margin, block, grid_shape, mc, C,
                          ids=ids)
     return _panel_take(pts8_t, G)
@@ -474,6 +473,33 @@ class FusedCapacityError(ValueError):
     """The compacted candidate panel would exceed ``max_panel``."""
 
 
+def fused_block_sums(cells: CellList, values_sorted, axes, margin: float,
+                     block: Tuple[int, int, int],
+                     grid_shape: Tuple[int, int, int],
+                     mc: Tuple[int, int, int], C: int, k: int, mode: str,
+                     power: float):
+    """The fused kernel over every block of the ``grid_shape`` grid whose
+    (padded) axes are ``axes``: the candidate panel of width ``C``, the
+    query rows, one launch, and the rows put back in node order. Returns
+    ``(field, den)``, (nz, ny, nx, V) and (nz, ny, nx); ``den`` is 0 on
+    uncovered nodes. The one-device path runs it on the whole grid, the
+    z-slab-sharded path on each rank's slab and store window."""
+    bz, by, bx = block
+    nz, ny, nx = grid_shape
+    dims = (_block_counts(nz, bz), _block_counts(ny, by),
+            _block_counts(nx, bx))
+    V = values_sorted.shape[1]
+    sz = _pick_sz(bz, by, bx)
+    cand = _compact_gather(cells, values_sorted, axes, margin, block,
+                           grid_shape, mc, C)
+    qx, qy, qz = _build_queries(axes, block, dims, sz, device=cells.device)
+    out = _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
+                      sz, int(k), V, C, mode, float(power))
+    del cand, qx, qy, qz
+    out = _reassemble(out, block, dims, sz, grid_shape)
+    return out[..., :V], out[..., V]
+
+
 def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
                                     mode: str = "sibson", power: float = 2.0,
                                     block: Tuple[int, int, int] | None = None,
@@ -489,7 +515,6 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
     if block is None:
         block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
     block = tuple(block)
-    bz, by, bx = block
 
     cells, values_sorted, axes, margin, mc, _row_len, vals = _host_setup(
         pts, vals, grid, k, block, margin_factor, cell_divisor=3.0,
@@ -500,20 +525,8 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
         raise FusedCapacityError(
             f"compacted candidate panel {C} exceeds max_panel={max_panel}")
 
-    nz, ny, nx = grid.shape
-    dims = (_block_counts(nz, bz), _block_counts(ny, by),
-            _block_counts(nx, bx))
-    V = vals.shape[1]
-    sz = _pick_sz(bz, by, bx)
-
-    cand = _compact_gather(cells, values_sorted, axes, margin, block,
-                           grid.shape, mc, C)
-    qx_all, qy_all, qz_all = _build_queries(axes, block, dims, sz,
-                                            device=dev)
-    out = _fused_eval(np.float32(margin * margin), cand, qx_all, qy_all,
-                      qz_all, block, sz, int(k), V, C, mode, float(power))
-    out = _reassemble(out, block, dims, sz, grid.shape)
-    field, den = out[..., :V], out[..., V]
+    field, den = fused_block_sums(cells, values_sorted, axes, margin, block,
+                                  grid.shape, mc, C, k, mode, power)
     return repair_empty_nodes(field, den, pts, vals, grid, k, mode, power,
                               cells=cells, margin=margin,
                               skip_mask=skip_mask,

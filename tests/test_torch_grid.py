@@ -67,11 +67,28 @@ def test_resolve_device_policy():
             resolve_device("cuda")
 
 
+def test_flat_coords_defaults_to_cuda():
+    """``Grid.flat_coords`` runs on the card unless the CPU is asked for,
+    like every entry point of the port: without an argument it raises
+    where CUDA is absent; on the CPU it gives the JAX package's rows."""
+    grid = create_grid(((-1.0, 4.0), (0.0, 3.0), (2.0, 9.0)), (5, 3, 4))
+    want = np.asarray(jax_create_grid(((-1.0, 4.0), (0.0, 3.0), (2.0, 9.0)),
+                                      (5, 3, 4)).flat_coords())
+    np.testing.assert_array_equal(grid.flat_coords("cpu").numpy(), want)
+    if torch.cuda.is_available():
+        assert grid.flat_coords().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda.is_available"):
+            grid.flat_coords()
+
+
 def test_port_never_imports_jax():
-    """Importing the port and running its slices end to end (the grid
-    entry points, the pipeline with variational cleaning, every other
-    interpolation method, the datasets and the flow analysis with pressure
-    and mesh drag) leaves every ``jax`` module out of ``sys.modules``."""
+    """Importing the port (the multi-GPU paths, alignment, the post-hoc
+    tools and checkpoints included) and running its slices end to end (the
+    grid entry points, the pipeline with variational cleaning, every other
+    interpolation method, the datasets, the flow analysis with pressure
+    and mesh drag, and the sharded grid path on a one-rank mesh) leaves
+    every ``jax`` module out of ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -80,6 +97,16 @@ def test_port_never_imports_jax():
         import ptv_interpolation_tpu_torch
         import ptv_interpolation_tpu_torch.convert
         import ptv_interpolation_tpu_torch.physics
+        import ptv_interpolation_tpu_torch.parallel
+        import ptv_interpolation_tpu_torch.parallel.slab_store
+        import ptv_interpolation_tpu_torch.align
+        import ptv_interpolation_tpu_torch.cli.tools
+        import ptv_interpolation_tpu_torch.cli.auto_align
+        import ptv_interpolation_tpu_torch.cli.pre_viewer
+        import ptv_interpolation_tpu_torch.io.checkpoint
+        from ptv_interpolation_tpu_torch.cli import (compare_results,
+                                                     open_results, plot_flux,
+                                                     view_divergence)
         from ptv_interpolation_tpu_torch.interpolate import (
             idw_grid_interpolate, sibson_grid_interpolate)
         rng = np.random.default_rng(0)
@@ -91,6 +118,12 @@ def test_port_never_imports_jax():
         b = idw_grid_interpolate(pts, vals, grid, k=8, block=(2, 4, 8),
                                  device="cpu")
         assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+        from ptv_interpolation_tpu_torch.parallel import make_mesh
+        from ptv_interpolation_tpu_torch.parallel.sharding import (
+            sharded_grid_interpolate)
+        c = sharded_grid_interpolate(pts, vals, grid, make_mesh(device="cpu"),
+                                     k=8, block=(2, 4, 8))
+        assert bool(torch.isfinite(c).all())
         from ptv_interpolation_tpu_torch.io import PointCloud
         from ptv_interpolation_tpu_torch.pipeline import (PipelineConfig,
                                                           run_pipeline)

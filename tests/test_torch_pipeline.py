@@ -242,7 +242,7 @@ def _ambiguous_nodes(points, grid, nodes, k):
     within 1e-5 relative. Brute force selects by the matmul expansion of
     d², whose f32 noise decides there, and the boundary particles sit on
     a lattice, where many such ties are exact."""
-    q = grid.flat_coords().numpy()[nodes].astype(np.float64)
+    q = grid.flat_coords("cpu").numpy()[nodes].astype(np.float64)
     p = np.asarray(points, np.float64)
     d = np.sort(np.sqrt(((q[:, None, :] - p[None, :, :]) ** 2).sum(-1)),
                 axis=1)
