@@ -68,7 +68,8 @@ and the script exits non-zero:
    projection method once; and takes one more cleaning call apart (set-up,
    CG iterations × ms, the shares of the S operator, V-cycle and dots with
    a synchronisation between layers, launches and device busy time per
-   iteration);
+   iteration); it saves the cleaning's input and one-device result as
+   ``.npy`` files for phase 14;
 11. the other interpolation methods, PyTorch ops with no kernel of their
    own (TF32 checked off first): (a) local RBF on the grid route at
    scenarios 3/4's size (500 000 tracks → 128³, thin-plate, k = 20) —
@@ -114,20 +115,29 @@ and the script exits non-zero:
    1e-5), ``auto_align`` on phase 6's mask with 5 000 tracks shifted by
    (3, −2, 4) (recovered within 2 voxels), and a checkpoint round trip of
    the cleaned field on the card (bit for bit);
-14. ``sharded_grid_interpolate`` on the headline problem in two worlds of
-   spawned processes: 1 rank over NCCL and 2 ranks over gloo, both on
-   cuda:0 (the gathers staged through host memory) — a warm-up and 3
-   timed runs per world: the median wall per rank beside phase 4's, each
-   rank's store bytes against the whole store's, kernel 1's launches per
-   rank, the slabs' repair counts and ``n_left``, peak memory per rank,
-   and the largest |Δ| and count of differing nodes against phase 4's
-   output; gated on relative L2 ≤ 1e-6 against f64 scipy on phase 4's
-   20 000 interior nodes, ≥ 99.9% of values within rtol 1e-3 / atol 1e-4
-   of phase 4's output and each rank's window within (total/n + halo)·1.35
-   rows; then ``sharded_interpolate_values`` with cells on phase 9's
-   problem (idw k=12) over the 2 ranks, bit for bit against the
-   single-device ``interpolate_values``. The ranks' kernel-1 launches
-   count in the record.
+14. the sharded paths in two worlds of spawned processes: 1 rank over
+   NCCL and 2 ranks over gloo, both on cuda:0 (the collectives staged
+   through host memory). (a) ``sharded_grid_interpolate`` on the headline
+   problem — a warm-up and 3 timed runs per world: the median wall per
+   rank beside phase 4's, each rank's store bytes against the whole
+   store's, kernel 1's launches per rank, the slabs' repair counts and
+   ``n_left``, peak memory per rank, and the largest |Δ| and count of
+   differing nodes against phase 4's output; gated on relative L2 ≤ 1e-6
+   against f64 scipy on phase 4's 20 000 interior nodes, ≥ 99.9% of
+   values within rtol 1e-3 / atol 1e-4 of phase 4's output and each
+   rank's window within (total/n + halo)·1.35 rows. (b) z-sharded
+   cleaning of phase 10's input at the production shape, variational (λ =
+   200) and projection (2 iterations) — a warm-up and 3 timed runs each:
+   the median wall per rank beside one device's, CG iterations, halo
+   exchanges and all-reduces per CG iteration, peak memory per rank;
+   gated on ``converged``, relative L2 ≤ 1e-4 per component against the
+   one-device fields (phase 10's for variational), CG counts within ±2,
+   every rank alike, the solid exactly 0. (c) ``sharded_interpolate_values``
+   with cells on phase 9's problem (idw k=12) over the 2 ranks, bit for
+   bit against the single-device ``interpolate_values``; (d)
+   ``make_pipeline_step`` in the 1-rank world (IDW k=16, one projection
+   iteration), timed, finite, the solid 0; (e) ``entry.dryrun_multichip(2)``
+   on the card. The ranks' kernel-1 launches count in the record.
 
 The script's wall is printed before the kernels' record. The second-to-last
 line of standard output is the kernels' JSON record
@@ -1252,7 +1262,7 @@ def _cleaning_breakdown(torch, u, v, w, mask, spacing, dev):
         log("    per CG iteration: launches and device time not measured")
 
 
-def phase_cleaning(torch, fluid, pts, vals, uncleaned):
+def phase_cleaning(torch, fluid, pts, vals, uncleaned, save_dir):
     from ptv_interpolation_tpu_torch import physics, pipeline
     from ptv_interpolation_tpu_torch.io import PointCloud
     from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
@@ -1336,6 +1346,7 @@ def phase_cleaning(torch, fluid, pts, vals, uncleaned):
         physics.clean_divergence_variational = variational
     peak = torch.cuda.max_memory_allocated()
     clean = calls[-1][1]
+    save_cleaning(save_dir, calls[0][0], clean)     # phase 14's reference
     init, final = (float(clean.mean_abs_div_initial),
                    float(clean.mean_abs_div_final))
     med_run = int(np.argsort(walls)[1])
@@ -2282,11 +2293,151 @@ def _sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def _phase14_rank(rank, world, init, workdir, values_job):
+SHARD_CLEAN_L2 = 1e-4     # Woodbury against the direct oracle (phase 10)
+SHARD_CLEAN_ITERS = 2     # MG-PCG counts against the one-device solve
+CLEAN_FILES = ("u0", "v0", "w0", "mask", "u", "v", "w")
+# make_pipeline_step's grid at phase 9's density: 64³, since its brute
+# force takes over 40 s a run at phase 9's 128³ on an NVIDIA H100 80GB HBM3
+# at 700 W (tools/chip_phase14.py --step-n 128)
+STEP_N = 64
+STEP_K = 16
+
+
+def save_cleaning(workdir, args, clean):
+    """Phase 10's input to ``clean_divergence_variational`` and its
+    one-device result, for phase 14: ``clean_*.npy`` and ``clean.json``
+    (the spacing and the CG count)."""
+    arrays = tuple(args[:4]) + tuple(clean[:3])
+    for name, a in zip(CLEAN_FILES, arrays):
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        np.save(os.path.join(workdir, f"clean_{name}.npy"), a)
+    with open(os.path.join(workdir, "clean.json"), "w") as fh:
+        json.dump({"spacing": [float(h) for h in args[4:7]],
+                   "iterations": int(clean.cg_iterations)}, fh)
+
+
+def _grid_job(torch, mesh, workdir, timed):
+    """The sharded headline path: a warm-up and 3 timed runs; rank 0
+    saves the field."""
+    from bench import GRID_N, N_POINTS, K
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu_torch.parallel.mesh import all_gather_cat
+    from ptv_interpolation_tpu_torch.parallel.sharding import (
+        sharded_grid_interpolate)
+    pts, vals, grid = uniform_problem(N_POINTS, GRID_N)
+
+    def run():
+        return sharded_grid_interpolate(pts, vals, grid, mesh,
+                                        method="sibson", k=K, block=BLOCK)
+
+    out, first = timed(run)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    fg._fused_eval.launches = 0
+    walls = []
+    for _ in range(3):
+        out, wall = timed(run)
+        walls.append(wall)
+    res = dict(first=first, walls=walls, launches=fg._fused_eval.launches,
+               peak=torch.cuda.max_memory_allocated(mesh.device),
+               stats=sharded_grid_interpolate.last_stats)
+    # the slabs' all-gather alone, as the path runs it (values + den)
+    rows = -(-(-(-grid.nz // mesh.size)) // BLOCK[0]) * BLOCK[0]
+    slab = out.new_empty((rows,) + out.shape[1:3] + (out.shape[3] + 1,))
+    res["gather"] = float(np.median([timed(
+        lambda: all_gather_cat(mesh, slab))[1] for _ in range(3)]))
+    if mesh.rank == 0:
+        np.save(os.path.join(workdir, f"grid{mesh.size}.npy"),
+                out.cpu().numpy())
+    return res
+
+
+def _clean_job(torch, mesh, workdir, timed):
+    """The z-sharded cleaners on phase 10's input at the production
+    shape: variational (λ = 200) and projection (2 iterations), a warm-up
+    and 3 timed runs each, with the halo exchanges and all-reduces of the
+    last run counted; rank 0 saves the fields. A 1-rank world times the
+    one-device solve in the same process, in turns with the sharded runs."""
+    from ptv_interpolation_tpu_torch import physics
+    from ptv_interpolation_tpu_torch.parallel import halo
+    u0, v0, w0, mask = (np.load(os.path.join(workdir, f"clean_{n}.npy"))
+                        for n in CLEAN_FILES[:4])
+    with open(os.path.join(workdir, "clean.json")) as fh:
+        spacing = json.load(fh)["spacing"]
+    solves = {
+        "variational": lambda: physics.clean_divergence_variational(
+            u0, v0, w0, mask, *spacing, lambda_reg=CLEAN_LAMBDA, mesh=mesh),
+        "projection": lambda: physics.clean_divergence_projection(
+            u0, v0, w0, mask, *spacing, iterations=2, mesh=mesh)}
+    one_device = {
+        "variational": lambda: physics.clean_divergence_variational(
+            u0, v0, w0, mask, *spacing, lambda_reg=CLEAN_LAMBDA,
+            device=mesh.device),
+        "projection": lambda: physics.clean_divergence_projection(
+            u0, v0, w0, mask, *spacing, iterations=2, device=mesh.device)}
+    out = {}
+    with _Recorder(halo, "halo_exchange", lambda _: 1) as halos, \
+            _Recorder(halo, "allreduce_sum", lambda _: 1) as sums:
+        for method, solve in solves.items():
+            res, first = timed(solve)
+            walls, peaks, single = [], [], []
+            for _ in range(3):
+                halos.clear()
+                sums.clear()
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+                res, wall = timed(solve)
+                walls.append(wall)
+                peaks.append(torch.cuda.max_memory_allocated(mesh.device))
+                if mesh.size == 1:     # in turns with the sharded runs
+                    single.append(timed(one_device[method])[1])
+            out[method] = dict(
+                first=first, walls=walls, iterations=res.cg_iterations,
+                converged=res.converged, halos=len(halos), sums=len(sums),
+                peak=max(peaks), div=(float(res.mean_abs_div_initial),
+                                      float(res.mean_abs_div_final)))
+            if single:
+                out[method]["one_device"] = single
+            if mesh.rank == 0:
+                np.save(os.path.join(workdir, f"{method}{mesh.size}.npy"),
+                        torch.stack(res[:3]).cpu().numpy())
+            del res
+    if mesh.size > 1:
+        # one exchange of a fine-level slab's plane, and one all-reduce of
+        # the two dots of an iteration, alone: 50 back to back
+        slab = torch.zeros((-(-mask.shape[0] // mesh.size),)
+                           + mask.shape[1:], device=mesh.device)
+        dots = torch.zeros(2, device=mesh.device)
+        for name, fn in (("halo_ms", lambda: halo.halo_exchange(mesh, slab)),
+                         ("sum_ms", lambda: halo.allreduce_sum(mesh, dots))):
+            timed(fn)
+            out[name] = timed(lambda: [fn() for _ in range(50)])[1] * 20.0
+    return out
+
+
+def _step_job(torch, mesh, timed, n):
+    """``make_pipeline_step`` on phase 9's density at n³ with a solid
+    block, k = 16: a warm-up and 3 timed runs."""
+    from ptv_interpolation_tpu_torch.parallel import make_pipeline_step
+    pts, vals, grid = uniform_problem(SMALL_POINTS * n ** 3 // SMALL_N ** 3,
+                                      n)
+    mask = np.ones(grid.shape, bool)
+    mask[:, :n // 4, :n // 4] = False
+    step = make_pipeline_step(grid, mesh=mesh, k=STEP_K, iterations=1)
+    out, first = timed(lambda: step(pts, vals, mask))
+    walls = [timed(lambda: step(pts, vals, mask))[1] for _ in range(3)]
+    u = torch.stack(out[:3])
+    return dict(n=n, first=first, walls=walls, div=float(out[3]),
+                finite=bool(torch.isfinite(u).all()),
+                solid=int(torch.count_nonzero(u[:, ~torch.as_tensor(
+                    mask, device=u.device)])), n_points=len(pts))
+
+
+def _phase14_rank(rank, world, init, workdir, jobs, step_n):
     """One rank of a phase-14 world, in a process of its own (spawned, so
-    it imports no JAX): the sharded headline path, a warm-up and 3 timed
-    runs, and with ``values_job`` the sharded query path on phase 9's
-    problem. Rank 0 saves the outputs; every rank pickles its numbers."""
+    it imports no JAX), running ``jobs``: ``grid`` the sharded headline
+    path, ``clean`` the z-sharded cleaners at the production shape,
+    ``values`` the sharded query path on phase 9's problem, ``step``
+    ``make_pipeline_step`` at ``step_n``³. Rank 0 saves the outputs;
+    every rank pickles its numbers."""
     import pickle
 
     import torch
@@ -2295,19 +2446,13 @@ def _phase14_rank(rank, world, init, workdir, values_job):
         sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    from bench import GRID_N, N_POINTS, K
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
     from ptv_interpolation_tpu_torch.ops.neighbors import bounded_cell_list
     from ptv_interpolation_tpu_torch.parallel import (
         initialize_distributed, make_mesh, sharded_interpolate_values)
-    from ptv_interpolation_tpu_torch.parallel.mesh import all_gather_cat
-    from ptv_interpolation_tpu_torch.parallel.sharding import (
-        sharded_grid_interpolate)
 
     initialize_distributed(init, world, rank)
     try:
         mesh = make_mesh()
-        pts, vals, grid = uniform_problem(N_POINTS, GRID_N)
 
         def timed(fn):
             if mesh.size > 1:
@@ -2318,32 +2463,14 @@ def _phase14_rank(rank, world, init, workdir, values_job):
             torch.cuda.synchronize(mesh.device)
             return out, time.perf_counter() - t0
 
-        def run():
-            return sharded_grid_interpolate(pts, vals, grid, mesh,
-                                            method="sibson", k=K, block=BLOCK)
-
-        out, first = timed(run)
-        torch.cuda.reset_peak_memory_stats(mesh.device)
-        fg._fused_eval.launches = 0
-        walls = []
-        for _ in range(3):
-            out, wall = timed(run)
-            walls.append(wall)
-        res = dict(backend=mesh.backend, device=str(mesh.device),
-                   first=first, walls=walls,
-                   launches=fg._fused_eval.launches,
-                   peak=torch.cuda.max_memory_allocated(mesh.device),
-                   stats=sharded_grid_interpolate.last_stats)
-        # the slabs' all-gather alone, as the path runs it (values + den)
-        rows = -(-(-(-grid.nz // world)) // BLOCK[0]) * BLOCK[0]
-        slab = out.new_empty((rows,) + out.shape[1:3] + (out.shape[3] + 1,))
-        res["gather"] = float(np.median([timed(
-            lambda: all_gather_cat(mesh, slab))[1] for _ in range(3)]))
-        if rank == 0:
-            np.save(os.path.join(workdir, f"grid{world}.npy"),
-                    out.cpu().numpy())
-        del out, slab
-        if values_job:
+        res = dict(backend=mesh.backend, device=str(mesh.device))
+        if "grid" in jobs:
+            res["grid"] = _grid_job(torch, mesh, workdir, timed)
+            torch.cuda.empty_cache()
+        if "clean" in jobs:
+            res["clean"] = _clean_job(torch, mesh, workdir, timed)
+            torch.cuda.empty_cache()
+        if "values" in jobs:
             spts, svals, sgrid = uniform_problem()
             cells = bounded_cell_list(spts, 12, 1, device=mesh.device)
             vout, res["values_wall"] = timed(
@@ -2353,13 +2480,17 @@ def _phase14_rank(rank, world, init, workdir, values_job):
             if rank == 0:
                 np.save(os.path.join(workdir, "values.npy"),
                         vout.cpu().numpy())
-        with open(os.path.join(workdir, f"rank{rank}-{world}.pkl"), "wb") as fh:
+            del vout
+        if "step" in jobs:
+            res["step"] = _step_job(torch, mesh, timed, step_n)
+        with open(os.path.join(workdir, f"rank{rank}-{world}.pkl"),
+                  "wb") as fh:
             pickle.dump(res, fh)
     finally:
         dist.destroy_process_group()
 
 
-def _run_world(world, workdir, values_job):
+def _run_world(world, workdir, jobs, step_n=STEP_N):
     """Spawn a phase-14 world and wait for it; a rank that fails or a
     world that runs over its time ends the phase (every rank stopped)."""
     import pickle
@@ -2367,7 +2498,7 @@ def _run_world(world, workdir, values_job):
     import torch.multiprocessing as mp
     init = "file://" + os.path.join(workdir, f"store{world}")
     ctx = mp.start_processes(_phase14_rank,
-                             args=(world, init, workdir, values_job),
+                             args=(world, init, workdir, jobs, step_n),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.perf_counter() + SHARD_WORLD_TIMEOUT
     try:
@@ -2387,94 +2518,191 @@ def _run_world(world, workdir, values_job):
     return ranks
 
 
-def phase_sharded(torch, single_wall, single_out, interior_ref,
-                  worlds=(1, 2)):
-    """Phase 14: ``sharded_grid_interpolate`` on the headline problem in
-    worlds of ``worlds`` ranks — on one card a 1-rank world (NCCL) and a
-    2-rank world (gloo, both ranks on cuda:0); with a card per rank, NCCL
-    — then ``sharded_interpolate_values`` with cells over the last
-    world's ranks. Returns kernel 1's launches summed over every rank's 3
-    timed runs."""
-    from bench import GRID_N, N_POINTS, K
-    from ptv_interpolation_tpu_torch.interpolate import interpolate_values
-    n_cards = torch.cuda.device_count()
-    log(f"== 14. sharded_grid_interpolate over ranks on {n_cards} "
-        f"card(s): {N_POINTS} points → {GRID_N}³, sibson k={K}, block "
-        f"{BLOCK}; worlds of {', '.join(map(str, worlds))} ranks (NCCL "
-        f"where each rank has a card, else gloo staged through host "
-        f"memory)")
+def _report_grid(ranks, world, workdir, single_wall, single_out,
+                 interior_ref):
+    """Phase 14's grid lines and gates for one world; returns kernel 1's
+    launches over its ranks."""
+    from bench import GRID_N, N_POINTS
     interior, ref = interior_ref
     iz, iy, ix = interior.T
-    launches = 0
-    with tempfile.TemporaryDirectory() as workdir:
-        for world in worlds:
-            t0 = time.perf_counter()
-            ranks = _run_world(world, workdir, world == worlds[-1])
-            log(f"  {world}-rank world: {time.perf_counter() - t0:.1f} s "
-                f"with process start-up; backend {ranks[0]['backend']}, "
-                f"devices {[r['device'] for r in ranks]}")
-            want = ("nccl" if world <= n_cards else "gloo", "cuda")
-            if any((r["backend"], r["device"].split(":")[0]) != want
-                   for r in ranks):
-                raise AssertionError(f"14: the {world}-rank world ran on "
-                                     f"{ranks[0]['backend']}, "
-                                     f"{ranks[0]['device']}; wanted {want}")
-            got = np.load(os.path.join(workdir, f"grid{world}.npy"))
-            walls = [float(np.median(r["walls"])) for r in ranks]
-            log(f"  median wall of 3 warm runs per rank "
-                f"{[round(w, 4) for w in walls]} s (first runs "
-                f"{[round(r['first'], 4) for r in ranks]} s); phase 4's "
-                f"single-device wall {single_wall:.4f} s; the slabs' "
-                f"all-gather alone {[round(r['gather'], 4) for r in ranks]} s")
-            st = [r["stats"] for r in ranks]
-            log(f"  store per rank {[s['store_bytes'] for s in st]} bytes "
-                f"of the whole store's {st[0]['whole_bytes']}; window rows "
-                f"{st[0]['n_loc']}, halo {st[0]['halo']:.4f}")
-            log(f"  kernel 1 launches per rank (3 runs) "
-                f"{[r['launches'] for r in ranks]}; uncovered "
-                f"{st[0]['uncovered']}, repaired per slab "
-                f"{st[0]['repaired']}, n_left {st[0]['n_left']}; peak device "
-                f"memory per rank "
-                f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
-            diff = np.abs(got - single_out)
-            close = float(np.isclose(got, single_out, rtol=1e-3,
-                                     atol=1e-4).mean())
-            n_diff = int((diff > 0).any(axis=-1).sum())
-            ours = got[iz, iy, ix].astype(np.float64)
-            l2 = float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
-            bound = N_POINTS * (1.0 / world + 2.0 * st[0]["halo"] / GRID_N) \
-                * SHARD_MEM_SLACK
-            log(f"  against the single-device output: largest |Δ| "
-                f"{diff.max():.3e}, {n_diff} nodes differ, {close:.6f} of "
-                f"values within rtol 1e-3 / atol 1e-4 (limit {SHARD_CLOSE}); "
-                f"relative L2 vs f64 scipy on {len(interior)} interior "
-                f"nodes {l2:.3e} (limit {L2_LIMIT:.0e}); largest window "
-                f"{max(st[0]['n_loc'])} rows (limit {bound:.0f})")
-            if not (close >= SHARD_CLOSE and l2 <= L2_LIMIT
-                    and max(st[0]["n_loc"]) < bound
-                    and min(r["launches"] for r in ranks) > 0):
-                raise AssertionError(f"14: the {world}-rank world failed a "
-                                     f"gate")
-            launches += sum(r["launches"] for r in ranks)
-            del got, diff
+    grid = [r["grid"] for r in ranks]
+    got = np.load(os.path.join(workdir, f"grid{world}.npy"))
+    walls = [float(np.median(r["walls"])) for r in grid]
+    log(f"  median wall of 3 warm runs per rank "
+        f"{[round(w, 4) for w in walls]} s (first runs "
+        f"{[round(r['first'], 4) for r in grid]} s); phase 4's "
+        f"single-device wall {single_wall:.4f} s; the slabs' "
+        f"all-gather alone {[round(r['gather'], 4) for r in grid]} s")
+    st = [r["stats"] for r in grid]
+    log(f"  store per rank {[s['store_bytes'] for s in st]} bytes "
+        f"of the whole store's {st[0]['whole_bytes']}; window rows "
+        f"{st[0]['n_loc']}, halo {st[0]['halo']:.4f}")
+    log(f"  kernel 1 launches per rank (3 runs) "
+        f"{[r['launches'] for r in grid]}; uncovered "
+        f"{st[0]['uncovered']}, repaired per slab "
+        f"{st[0]['repaired']}, n_left {st[0]['n_left']}; peak device "
+        f"memory per rank "
+        f"{[round(r['peak'] / 2**30, 3) for r in grid]} GiB")
+    diff = np.abs(got - single_out)
+    close = float(np.isclose(got, single_out, rtol=1e-3, atol=1e-4).mean())
+    n_diff = int((diff > 0).any(axis=-1).sum())
+    ours = got[iz, iy, ix].astype(np.float64)
+    l2 = float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
+    bound = N_POINTS * (1.0 / world + 2.0 * st[0]["halo"] / GRID_N) \
+        * SHARD_MEM_SLACK
+    log(f"  against the single-device output: largest |Δ| "
+        f"{diff.max():.3e}, {n_diff} nodes differ, {close:.6f} of "
+        f"values within rtol 1e-3 / atol 1e-4 (limit {SHARD_CLOSE}); "
+        f"relative L2 vs f64 scipy on {len(interior)} interior "
+        f"nodes {l2:.3e} (limit {L2_LIMIT:.0e}); largest window "
+        f"{max(st[0]['n_loc'])} rows (limit {bound:.0f})")
+    if not (close >= SHARD_CLOSE and l2 <= L2_LIMIT
+            and max(st[0]["n_loc"]) < bound
+            and min(r["launches"] for r in grid) > 0):
+        raise AssertionError(f"14: the {world}-rank world failed a gate")
+    return sum(r["launches"] for r in grid)
 
-        spts, svals, sgrid = uniform_problem()
-        torch.cuda.synchronize()
+
+def _report_clean(ranks, world, workdir, single):
+    """Phase 14's cleaning lines and gates for one world against the
+    one-device solves (``single``: method → (fields, iterations))."""
+    fluid = np.load(os.path.join(workdir, "clean_mask.npy"))
+    no_ops = ", no-ops on one rank" if world == 1 else ""
+    if world > 1:
+        log(f"  one halo exchange alone (a {fluid.shape[1]}×"
+            f"{fluid.shape[2]} plane each way) "
+            f"{[round(r['clean']['halo_ms'], 4) for r in ranks]} ms, one "
+            f"all-reduce of 2 dots "
+            f"{[round(r['clean']['sum_ms'], 4) for r in ranks]} ms per rank")
+    for method, (want, want_iters) in single.items():
+        cl = [r["clean"][method] for r in ranks]
+        got = np.load(os.path.join(workdir, f"{method}{world}.npy"))
+        rels = [float(np.linalg.norm(g.astype(np.float64) - w)
+                      / np.linalg.norm(w)) for g, w in zip(got, want)]
+        iters = cl[0]["iterations"]
+        per_it = max(iters, 1)
+        n_solid = int(np.count_nonzero(got[:, ~fluid]))
+        log(f"  {method}: median wall of 3 warm runs per rank "
+            f"{[round(float(np.median(c['walls'])), 4) for c in cl]} s "
+            f"(first runs {[round(c['first'], 4) for c in cl]} s); {iters} "
+            f"CG iterations (one device "
+            f"{want_iters}), converged {cl[0]['converged']}; per CG "
+            f"iteration {cl[0]['halos'] / per_it:.1f} halo exchanges and "
+            f"{cl[0]['sums'] / per_it:.1f} all-reduces ({cl[0]['halos']} and "
+            f"{cl[0]['sums']} in the run{no_ops}); "
+            f"peak device memory per rank "
+            f"{[round(c['peak'] / 2**30, 3) for c in cl]} GiB")
+        log(f"    mean |div| {cl[0]['div'][0]:.6e} → {cl[0]['div'][1]:.6e}; "
+            f"relative L2 against the one-device fields u {rels[0]:.3e}, "
+            f"v {rels[1]:.3e}, w {rels[2]:.3e} (limit {SHARD_CLEAN_L2:.0e}); "
+            f"{n_solid} nonzero solid values")
+        if "one_device" in cl[0]:
+            log(f"    one device in the rank's process, in turns: median of 3 "
+                f"{float(np.median(cl[0]['one_device'])):.4f} s")
+        if any(c["iterations"] != iters or c["div"] != cl[0]["div"]
+               for c in cl):
+            raise AssertionError(f"14: the ranks disagree on {method}")
+        if not (cl[0]["converged"] and max(rels) <= SHARD_CLEAN_L2
+                and abs(iters - want_iters) <= SHARD_CLEAN_ITERS
+                and n_solid == 0 and np.isfinite(got).all()):
+            raise AssertionError(f"14: {method} cleaning on {world} ranks "
+                                 f"failed a gate")
+
+
+def _single_cleaning(torch, workdir):
+    """The one-device references of phase 14's cleaning, ``method →
+    (fields, CG iterations)``: phase 10's variational result (saved), and
+    one projection solve (2 iterations) run here."""
+    from ptv_interpolation_tpu_torch import physics
+    arrays = {n: np.load(os.path.join(workdir, f"clean_{n}.npy"))
+              for n in CLEAN_FILES}
+    with open(os.path.join(workdir, "clean.json")) as fh:
+        meta = json.load(fh)
+    proj = physics.clean_divergence_projection(
+        *[arrays[n] for n in CLEAN_FILES[:4]], *meta["spacing"],
+        iterations=2, device="cuda")
+    single = {
+        "variational": (np.stack([arrays[n] for n in "uvw"]).astype(
+            np.float64), meta["iterations"]),
+        "projection": (torch.stack(proj[:3]).cpu().numpy().astype(np.float64),
+                       proj.cg_iterations)}
+    del proj
+    torch.cuda.empty_cache()
+    return single
+
+
+def phase_sharded(torch, single_wall, single_out, interior_ref, workdir,
+                  worlds=(1, 2), step_n=STEP_N):
+    """Phase 14 in worlds of ``worlds`` ranks — on one card a 1-rank
+    world (NCCL) and a 2-rank world (gloo, both ranks on cuda:0); with a
+    card per rank, NCCL: ``sharded_grid_interpolate`` on the headline
+    problem, and the z-sharded cleaners on phase 10's input (saved in
+    ``workdir``); then ``sharded_interpolate_values`` with cells over the
+    last world's ranks, ``make_pipeline_step`` at ``step_n``³ in the
+    1-rank world, and ``entry.dryrun_multichip(2)``. Returns kernel 1's
+    launches summed over every rank's 3 timed runs."""
+    from bench import GRID_N, N_POINTS, K
+    from ptv_interpolation_tpu_torch.entry import dryrun_multichip
+    from ptv_interpolation_tpu_torch.interpolate import interpolate_values
+    n_cards = torch.cuda.device_count()
+    log(f"== 14. sharded paths over ranks on {n_cards} card(s): "
+        f"sharded_grid_interpolate, {N_POINTS} points → {GRID_N}³, sibson "
+        f"k={K}, block {BLOCK}; z-sharded cleaning of phase 10's input; "
+        f"worlds of {', '.join(map(str, worlds))} ranks (NCCL where each "
+        f"rank has a card, else gloo staged through host memory)")
+    single = _single_cleaning(torch, workdir)
+    launches = 0
+    for world in worlds:
+        jobs = ("grid", "clean") + (("values",) if world == worlds[-1]
+                                    else ()) + (("step",) if world == 1
+                                                else ())
         t0 = time.perf_counter()
-        want = interpolate_values(spts, svals, sgrid.flat_coords("cuda"),
-                                  method="idw", idw_neighbors=12,
-                                  device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = np.load(os.path.join(workdir, "values.npy"))
-        same = np.array_equal(got, want.cpu().numpy())
-        log(f"  sharded_interpolate_values with cells, {SMALL_POINTS} points "
-            f"→ {SMALL_N}³, idw k=12, {worlds[-1]} ranks: "
-            f"{[round(r['values_wall'], 4) for r in ranks]} s per rank "
-            f"(single device {wall:.4f} s); bit for bit {same}")
-        if not same:
-            raise AssertionError("14: sharded_interpolate_values differs "
-                                 "from the single-device result")
+        ranks = _run_world(world, workdir, jobs, step_n)
+        log(f"  {world}-rank world: {time.perf_counter() - t0:.1f} s "
+            f"with process start-up; backend {ranks[0]['backend']}, "
+            f"devices {[r['device'] for r in ranks]}")
+        want = ("nccl" if world <= n_cards else "gloo", "cuda")
+        if any((r["backend"], r["device"].split(":")[0]) != want
+               for r in ranks):
+            raise AssertionError(f"14: the {world}-rank world ran on "
+                                 f"{ranks[0]['backend']}, "
+                                 f"{ranks[0]['device']}; wanted {want}")
+        launches += _report_grid(ranks, world, workdir, single_wall,
+                                 single_out, interior_ref)
+        _report_clean(ranks, world, workdir, single)
+        if "step" in jobs:
+            st = ranks[0]["step"]
+            log(f"  make_pipeline_step ({st['n_points']} points → "
+                f"{st['n']}³, IDW k={STEP_K}, one projection iteration, 1 "
+                f"rank): first run {st['first']:.4f} s, median of 3 "
+                f"{float(np.median(st['walls'])):.4f} s; mean |div| "
+                f"{st['div']:.4e}, every value finite {st['finite']}, "
+                f"{st['solid']} nonzero solid values")
+            if not (st["finite"] and st["solid"] == 0):
+                raise AssertionError("14: make_pipeline_step failed a gate")
+
+    spts, svals, sgrid = uniform_problem()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = interpolate_values(spts, svals, sgrid.flat_coords("cuda"),
+                              method="idw", idw_neighbors=12, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = np.load(os.path.join(workdir, "values.npy"))
+    same = np.array_equal(got, want.cpu().numpy())
+    log(f"  sharded_interpolate_values with cells, {SMALL_POINTS} points "
+        f"→ {SMALL_N}³, idw k=12, {worlds[-1]} ranks: "
+        f"{[round(r['values_wall'], 4) for r in ranks]} s per rank "
+        f"(single device {wall:.4f} s); bit for bit {same}")
+    if not same:
+        raise AssertionError("14: sharded_interpolate_values differs "
+                             "from the single-device result")
+    del want
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    log(f"  entry.dryrun_multichip(2) on the card: "
+        f"{time.perf_counter() - t0:.1f} s with process start-up")
     return launches
 
 
@@ -2510,7 +2738,9 @@ def main():
     del pts, vals
     phase_other_routes(torch, K)
     fluid, pts, vals = problem[:3]
-    clean_mad, clean_grid = phase_cleaning(torch, fluid, pts, vals, uncleaned)
+    shard_dir = tempfile.TemporaryDirectory()      # phase 10 → phase 14
+    clean_mad, clean_grid = phase_cleaning(torch, fluid, pts, vals, uncleaned,
+                                           shard_dir.name)
     del problem, uncleaned
     torch.cuda.empty_cache()
     phase_other_methods(torch)
@@ -2525,8 +2755,9 @@ def main():
         phase_tools(torch, tmp, pts, vals)
     del fluid, pts, vals
     torch.cuda.empty_cache()
-    shard_launches = phase_sharded(torch, single_wall, single_out,
-                                   interior_ref)
+    with shard_dir:
+        shard_launches = phase_sharded(torch, single_wall, single_out,
+                                       interior_ref, shard_dir.name)
     log(f"launches: fused_grid_knn {launches} (phase 4) + {grid_launches} "
         f"(phase 6) + {clean_grid} (phase 10) + {cli_grid} (phase 12a) + "
         f"{shard_launches} (phase 14, every rank); "

@@ -39,6 +39,11 @@ def _dot(a, b):
     return total
 
 
+def _dots(*pairs):
+    """The inner product of each ``(a, b)`` pair (:func:`_dot`)."""
+    return [_dot(a, b) for a, b in pairs]
+
+
 def _axpy(alpha, x, y):
     return _map(lambda xi, yi: alpha * xi + yi, x, y)
 
@@ -52,7 +57,7 @@ class CGResult(NamedTuple):
 
 def pcg(A: Callable, b, x0=None, M_inv: Optional[Callable] = None,
         project: Optional[Callable] = None, tol: float = 1e-8,
-        maxiter: int = 1000) -> CGResult:
+        maxiter: int = 1000, dot: Optional[Callable] = None) -> CGResult:
     """Preconditioned conjugate gradients for SPD (or PSD + projected) A.
 
     Parameters
@@ -61,6 +66,12 @@ def pcg(A: Callable, b, x0=None, M_inv: Optional[Callable] = None,
     M_inv : preconditioner application (approximate A⁻¹).
     project : projector onto range(A) applied to residuals/iterates each
         iteration — pass the zero-mean projector for pure-Neumann Poisson.
+    dot : ``dot(*pairs)`` → the inner product of each ``(a, b)`` pair;
+        the one-device dots by default. A z-sharded solve passes its
+        slabs' dots summed over the ranks: the dots an iteration needs
+        together (``r·z`` and ``r·r``) come in one call, so they cost one
+        collective, and every rank must receive the same values, since
+        the loop branches on them.
 
     The iteration is the JAX package's step for step, so ``iterations``
     counts the same steps: stop when ``r·r ≤ (tol·‖b‖)²`` or at
@@ -78,19 +89,20 @@ def pcg(A: Callable, b, x0=None, M_inv: Optional[Callable] = None,
     if project is not None and M_inv is not None:
         z = project(z)   # keep preconditioned directions out of the null space
     p = z
-    rz = _dot(r, z)
-    b_norm = torch.sqrt(_dot(b, b))
+    dot = _dots if dot is None else dot
+    rz, bb, rr = dot((r, z), (b, b), (r, r))
+    b_norm = torch.sqrt(bb)
     atol2 = (tol * b_norm) ** 2
     atol2_host = float(atol2)
 
     x, it = x0, 0
-    rr = _dot(r, r)
     # reading rr is the only host synchronisation of an iteration
     while it < maxiter and float(rr) > atol2_host:
         Ap = A(p)
         if project is not None:
             Ap = project(Ap)
-        alpha = rz / torch.clamp_min(_dot(p, Ap), 1e-37)
+        (pap,) = dot((p, Ap))
+        alpha = rz / torch.clamp_min(pap, 1e-37)
         x = _axpy(alpha, p, x)
         r = _axpy(-alpha, Ap, r)
         if project is not None:
@@ -98,12 +110,11 @@ def pcg(A: Callable, b, x0=None, M_inv: Optional[Callable] = None,
         z = M_inv(r) if M_inv is not None else r
         if project is not None and M_inv is not None:
             z = project(z)
-        rz_new = _dot(r, z)
+        rz_new, rr = dot((r, z), (r, r))
         beta = rz_new / torch.clamp_min(rz, 1e-37)
         p = _axpy(beta, p, z)
         rz = rz_new
         it += 1
-        rr = _dot(r, r)
     res_norm = torch.sqrt(rr)
     return CGResult(x=x, iterations=it, residual_norm=res_norm,
                     converged=bool(res_norm <= torch.sqrt(atol2)))

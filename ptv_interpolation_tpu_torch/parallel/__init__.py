@@ -1,5 +1,6 @@
-"""Multi-GPU parallelism over ``torch.distributed``: query sharding and
-z-slab sharding of the grid path (one process per GPU)."""
+"""Multi-GPU parallelism over ``torch.distributed``: query sharding,
+z-slab sharding of the grid path, z-sharded cleaning and the pipeline
+step (one process per GPU)."""
 
 from ptv_interpolation_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -10,6 +11,7 @@ from ptv_interpolation_tpu_torch.parallel.mesh import (
     shard_fields,
 )
 from ptv_interpolation_tpu_torch.parallel.sharding import (
+    make_pipeline_step,
     sharded_interpolate_field,
     sharded_interpolate_values,
 )
@@ -21,6 +23,7 @@ __all__ = [
     "replicated",
     "row_sharded",
     "shard_fields",
+    "make_pipeline_step",
     "sharded_interpolate_field",
     "sharded_interpolate_values",
 ]

@@ -1,7 +1,6 @@
 """SPMD execution of the interpolation paths over a mesh of ranks.
 
-Counterpart of ``ptv_interpolation_tpu/parallel/sharding.py``, but for
-``make_pipeline_step`` (z-sharded cleaning is not ported yet). Every rank
+Counterpart of ``ptv_interpolation_tpu/parallel/sharding.py``. Every rank
 of the mesh calls the same function with the same arguments; each
 computes its share and every rank returns the whole result.
 
@@ -20,6 +19,10 @@ computes its share and every rank returns the whole result.
   margin from the same window; the slabs are all-gathered, and only
   far-field voids go to the global repair ladder.
 
+* **The pipeline step** (:func:`make_pipeline_step`): query-sharded IDW
+  onto the grid, mask zeroing and z-sharded projection cleaning
+  (``physics.py``, ``parallel/halo.py``).
+
 Host decisions that steer a collective are taken from gathered data, so
 that every rank takes them alike: the repair's eligibility from every
 rank's survey, and the count of nodes left for the global ladder from
@@ -35,12 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ptv_interpolation_tpu_torch.device import as_f32
+from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.grid import Grid
 from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
     _idw_weights,
     _sibson_weights,
     _weighted_tile,
+    idw_interpolate,
 )
 from ptv_interpolation_tpu_torch.ops.neighbors import (
     _PAD_ROWS,
@@ -362,3 +366,49 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
 
 
 sharded_grid_interpolate.last_stats = None
+
+
+# ---------------------------------------------------------------------------
+# The whole sharded pipeline step
+# ---------------------------------------------------------------------------
+
+def make_pipeline_step(grid: Grid, mesh: Optional[Mesh] = None, k: int = 16,
+                       power: float = 2.0, iterations: int = 1,
+                       query_tile: int = 512, device="cuda"):
+    """An end-to-end step, scattered vectors and a fluid mask → a
+    divergence-cleaned grid field: ``step(points, values, fluid_mask) →
+    (u, v, w, mean_abs_div_final)``.
+
+    The step interpolates by brute-force IDW onto ``grid.flat_coords`` in
+    tiles of ``query_tile`` queries (sharded over ``mesh`` by
+    :func:`sharded_interpolate_values`, which gives the one-device result
+    bit for bit), zeroes the solid, and runs ``iterations`` of projection
+    cleaning (``maxiter=50``; z-sharded over ``mesh``). With a mesh every
+    rank calls it alike and gets the whole fields on ``mesh.device``;
+    without one it runs on ``device``. The JAX counterpart is a jitted
+    function whose outputs are z-sharded; this one is a plain callable."""
+    from ptv_interpolation_tpu_torch.physics import (
+        clean_divergence_projection)
+
+    dev = resolve_device(device) if mesh is None else mesh.device
+    dx, dy, dz = grid.spacing
+    queries = grid.flat_coords(dev)
+
+    def step(points, values, fluid_mask):
+        if mesh is not None:
+            out = sharded_interpolate_values(points, values, queries, mesh,
+                                             method="idw", k=k, power=power,
+                                             query_tile=query_tile)
+        else:
+            out = idw_interpolate(points, values, queries, k=k, power=power,
+                                  query_tile=query_tile, device=dev)
+        out = out.reshape(grid.shape + (out.shape[-1],))
+        mask = torch.as_tensor(fluid_mask, device=dev).to(torch.bool)
+        maskf = mask.float()
+        res = clean_divergence_projection(
+            out[..., 0] * maskf, out[..., 1] * maskf, out[..., 2] * maskf,
+            mask, dx, dy, dz, iterations=iterations, maxiter=50, device=dev,
+            mesh=mesh)
+        return res.u, res.v, res.w, res.mean_abs_div_final
+
+    return step

@@ -14,10 +14,16 @@ the JAX transpose.
 
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when no
 card is there; results are tensors on that device.
+
+The cleaners also run z-sharded over a mesh of ranks (``mesh=``, the
+port's counterpart of the JAX package's cleaning on z-sharded arrays):
+each rank solves on its z-slab with the halo exchanges and sums of
+``parallel/halo.py`` that GSPMD inserts in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,8 +33,9 @@ from ptv_interpolation_tpu_torch.ops.multigrid import (
     _pad_to_even,
     make_mg_preconditioner,
     make_mg_preconditioner_batched,
+    mg_level_count,
 )
-from ptv_interpolation_tpu_torch.ops.solvers import pcg
+from ptv_interpolation_tpu_torch.ops.solvers import _dots, pcg
 from ptv_interpolation_tpu_torch.ops.stencils import (
     consistent_correction,
     consistent_divergence,
@@ -104,13 +111,22 @@ def divergence_operators(mask, dx, dy, dz, dtype=torch.float32):
 def clean_divergence_projection(u, v, w, mask, dx, dy, dz, iterations: int = 3,
                                 tol: float = 1e-8, maxiter: int = 1000,
                                 precond: str = "mg",
-                                device="cuda") -> CleanResult:
+                                device="cuda", mesh=None) -> CleanResult:
     """Iterative pressure-projection cleaning (`physics.py:149-209`).
 
     Each iteration: FV divergence → masked-Laplacian Poisson solve
     (multigrid- or Jacobi-preconditioned CG with zero-mean projection over
     fluid) → staggered-gradient correction.
+
+    With ``mesh`` (``parallel.make_mesh``) every rank of it calls alike
+    with the whole fields and mask; each keeps its z-slab on
+    ``mesh.device`` (``device`` is not used), solves z-sharded and
+    returns the whole cleaned fields, the same on every rank. The JAX
+    counterpart returns z-sharded global arrays instead.
     """
+    if mesh is not None:
+        return _projection_on_slabs(u, v, w, mask, dx, dy, dz, iterations,
+                                    tol, maxiter, precond, mesh)
     dev = resolve_device(device)
     mask = _as_mask(mask, dev)
     maskf = mask.float()
@@ -200,7 +216,7 @@ def clean_divergence_variational(u, v, w, mask, dx, dy, dz,
                                  lambda_reg: float = 1e3, tol: float = 1e-8,
                                  maxiter: int = 2000,
                                  solver: str = "woodbury",
-                                 device="cuda") -> CleanResult:
+                                 device="cuda", mesh=None) -> CleanResult:
     """Variational cleaning (`physics.py:440-514`): minimize
     ``‖U − U0‖² + λ‖div U‖²`` ⇔ solve ``(I + λ D̃ᵀD̃) U = U0``, matrix-free,
     with ``D̃`` the FV divergence restricted to fluid cells.
@@ -214,7 +230,15 @@ def clean_divergence_variational(u, v, w, mask, dx, dy, dz,
     on each of the 8 parity sublattices, so a parity-decomposed geometric
     V-cycle preconditions it. ``solver='direct'`` keeps the literal 3n CG
     formulation with the exact Jacobi diagonal (the oracle the tests hold
-    Woodbury against)."""
+    Woodbury against).
+
+    With ``mesh`` it runs z-sharded, as
+    :func:`clean_divergence_projection` does: the whole fields in on
+    every rank, the whole cleaned fields out on every rank (the JAX
+    counterpart returns z-sharded global arrays)."""
+    if mesh is not None:
+        return _variational_on_slabs(u, v, w, mask, dx, dy, dz, lambda_reg,
+                                     tol, maxiter, solver, mesh)
     dev = resolve_device(device)
     mask = _as_mask(mask, dev)
     maskf = mask.float()
@@ -259,16 +283,19 @@ def clean_divergence_variational(u, v, w, mask, dx, dy, dz,
 
 def clean_divergence(u, v, w, mask, dx, dy, dz, iterations: int = 3,
                      method: str = "projection", lambda_reg: float = 1e3,
-                     verbose: bool = True, device="cuda"):
+                     verbose: bool = True, device="cuda", mesh=None):
     """Dispatcher matching the reference signature (`physics.py:347-354`).
     Returns ``(u, v, w)`` tensors on ``device``; diagnostics are printed
-    like the reference's cleaning reports when ``verbose``."""
-    dev = resolve_device(device)
+    like the reference's cleaning reports when ``verbose``. With ``mesh``
+    the cleaner runs z-sharded and every rank of the mesh returns the
+    whole fields on ``mesh.device``."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     if method == "variational":
         if verbose:
             print(f"Starting Variational Divergence Cleaning (lambda={lambda_reg})...")
         res = clean_divergence_variational(u, v, w, mask, dx, dy, dz,
-                                           lambda_reg=lambda_reg, device=dev)
+                                           lambda_reg=lambda_reg, device=dev,
+                                           mesh=mesh)
         title = "VARIATIONAL CLEANING COMPLETE"
     else:
         if verbose:
@@ -276,7 +303,8 @@ def clean_divergence(u, v, w, mask, dx, dy, dz, iterations: int = 3,
             print(f"  [Initial] Net X-Flux (mid-plane): "
                   f"{float(mid_plane_flux(as_f32(u, dev), dy, dz)):.4e}")
         res = clean_divergence_projection(u, v, w, mask, dx, dy, dz,
-                                          iterations=iterations, device=dev)
+                                          iterations=iterations, device=dev,
+                                          mesh=mesh)
         title = "DIVERGENCE CLEANING COMPLETE"
     if verbose:
         init = float(res.mean_abs_div_initial)
@@ -296,6 +324,211 @@ def clean_divergence(u, v, w, mask, dx, dy, dz, iterations: int = 3,
                   f"{float(mid_plane_flux(res.u, dy, dz)):.4e}")
         print("=" * 40 + "\n")
     return res.u, res.v, res.w
+
+
+# ---------------------------------------------------------------------------
+# Z-sharded cleaning: each rank solves on its z-slab
+# ---------------------------------------------------------------------------
+
+class _SlabGrid:
+    """This rank's z-slab of a mask that every rank holds whole, and the
+    cleaning operators on slabs of fields.
+
+    Each operator that reads z ± 1 follows one rule: extend its operands
+    by a halo (``parallel.halo.ZSlabs``), apply the unchanged one-device
+    operator, crop the halo planes. An operand that the operator reads
+    only in its own plane takes zero planes in place of a halo, unless the
+    result's halo planes feed a second operator. The mask's halos are cut
+    from the whole mask, so they cost no exchange."""
+
+    def __init__(self, mask, mesh, n_levels: int, unit: int, spacing):
+        from ptv_interpolation_tpu_torch.parallel.halo import (ZSlabs,
+                                                               mg_slab_plan)
+        whole = _as_mask(mask, mesh.device)
+        bounds, self.n_sharded = mg_slab_plan(whole.shape[0], mesh, n_levels,
+                                              unit)
+        self.slabs = sl = ZSlabs(mesh, bounds)
+        self.mask = sl.take(whole)
+        self.maskf = self.mask.float()
+        # the mask with halos of 1 and 2 planes
+        self.mask_e = (sl.take(whole, 1), sl.take(whole, 2))
+        self.n_fluid = torch.clamp_min(whole.sum(), 1)
+        self.h = tuple(spacing)
+
+    def field(self, a) -> torch.Tensor:
+        """This rank's slab of the whole field ``a``, f32, zero on solid."""
+        return self.slabs.take(a, dtype=torch.float32) * self.maskf
+
+    def gather(self, fields):
+        """The whole fields from their slabs, in one all-gather."""
+        return self.slabs.gather(torch.stack(fields)).unbind()
+
+    def dot(self, *pairs):
+        """:func:`pcg`'s ``dot``: the slabs' dots, one all-reduce."""
+        from ptv_interpolation_tpu_torch.parallel.halo import allreduce_sum
+        return allreduce_sum(self.slabs.mesh, torch.stack(_dots(*pairs))
+                             ).unbind()
+
+    def divergence(self, u, v, w):
+        """:func:`consistent_divergence` (the 'roll' variant)."""
+        sl = self.slabs
+        return sl.crop(consistent_divergence(
+            sl.pad(u), sl.pad(v), sl.extend(w), self.mask_e[0], *self.h))
+
+    def mean_abs_div(self, u, v, w):
+        """:func:`_mean_abs_div` over the whole grid."""
+        return (self.slabs.sum(self.divergence(u, v, w).abs() * self.mask)
+                / self.n_fluid)
+
+    @functools.cached_property
+    def _lap_coeffs(self):
+        return laplacian_coeffs(self.mask_e[0], *self.h)
+
+    def neg_lap(self, phi):
+        """``−Lap φ`` of the masked Laplacian."""
+        sl = self.slabs
+        return -sl.crop(laplacian_apply_coeffs(sl.extend(phi),
+                                               self._lap_coeffs))
+
+    def jacobi(self):
+        """:func:`_jacobi` of the masked Laplacian."""
+        return self.slabs.crop(_jacobi(self._lap_coeffs))
+
+    def correction(self, u, v, w, phi):
+        """:func:`consistent_correction` by the potential ``φ``."""
+        sl = self.slabs
+        return tuple(sl.crop(a) for a in consistent_correction(
+            sl.pad(u), sl.pad(v), sl.pad(w), sl.extend(phi), self.mask_e[0],
+            *self.h))
+
+    @functools.cached_property
+    def _op_coeffs(self):
+        """``(maskf, coeffs)`` of ``D̃`` on the masks with halos 1 and 2."""
+        return tuple((m.float(), operator_divergence_coeffs(m))
+                     for m in self.mask_e)
+
+    def _div(self, uvw, width):
+        maskf, coeffs = self._op_coeffs[width - 1]
+        return self.slabs.crop(masked_divergence(uvw, maskf, coeffs,
+                                                 *self.h))
+
+    def _div_T(self, q, width):
+        maskf, coeffs = self._op_coeffs[width - 1]
+        return tuple(self.slabs.crop(d) for d in masked_divergence_T(
+            q, maskf, coeffs, *self.h))
+
+    def div_op(self, uvw):
+        """``D̃ U`` (:func:`masked_divergence`)."""
+        u, v, w = uvw
+        sl = self.slabs
+        return self._div((sl.pad(u), sl.pad(v), sl.extend(w)), 1)
+
+    def div_op_T(self, q):
+        """``D̃ᵀ q`` (:func:`masked_divergence_T`)."""
+        return self._div_T(self.slabs.extend(q), 1)
+
+    def woodbury_S(self, q, lambda_reg):
+        """``q/λ + D̃(D̃ᵀq)`` on fluid: one halo of 2 planes, one crop per
+        factor."""
+        return self.maskf * q / lambda_reg + self._div(
+            self._div_T(self.slabs.extend(q, 2), 2), 1)
+
+    def direct_A(self, uvw, lambda_reg):
+        """``(I + λ D̃ᵀD̃) U`` on fluid. ``D̃``'s halo plane feeds ``D̃ᵀ``,
+        so every component takes the halo of 2 planes."""
+        d = self._div(self.slabs.extend(torch.stack(uvw), 2).unbind(), 2)
+        return tuple(x * self.maskf + lambda_reg * y * self.maskf
+                     for x, y in zip(uvw, self._div_T(d, 1)))
+
+    def dtd_diag(self):
+        """:func:`divergence_dtd_diag`."""
+        return tuple(self.slabs.crop(d)
+                     for d in divergence_dtd_diag(self.mask_e[0], *self.h))
+
+
+def _projection_on_slabs(u, v, w, mask, dx, dy, dz, iterations, tol,
+                         maxiter, precond, mesh) -> CleanResult:
+    """:func:`clean_divergence_projection` over ``mesh``: the same loop on
+    this rank's slab, the fluid means and dots summed over the ranks, and
+    the V-cycle the one-device hierarchy, sharded
+    (:func:`make_mg_preconditioner`)."""
+    whole = _as_mask(mask, mesh.device)
+    n_levels = mg_level_count(whole.shape) if precond == "mg" else 1
+    g = _SlabGrid(whole, mesh, n_levels, 1, (dx, dy, dz))
+    maskf = g.maskf
+    u, v, w = (g.field(a) for a in (u, v, w))
+
+    def project(x):
+        return (x - g.slabs.sum(x * maskf) / g.n_fluid) * maskf
+
+    if precond == "mg":
+        m_inv = make_mg_preconditioner(whole, dx, dy, dz, slabs=g.slabs,
+                                       n_sharded=g.n_sharded)
+    else:
+        inv_diag = g.jacobi()
+
+        def m_inv(r):
+            return -inv_diag * r
+
+    m_div_init = g.mean_abs_div(u, v, w)
+    total_iters, conv = 0, True
+    for _ in range(iterations):
+        b = project(g.divergence(u, v, w) * maskf)
+        res = pcg(g.neg_lap, -b, M_inv=m_inv, project=project, tol=tol,
+                  maxiter=maxiter, dot=g.dot)
+        u, v, w = g.correction(u, v, w, res.x)
+        total_iters += res.iterations
+        conv = res.converged
+
+    m_div_final = g.mean_abs_div(u, v, w)
+    return CleanResult(*g.gather((u, v, w)), m_div_init, m_div_final,
+                       total_iters, conv)
+
+
+def _variational_on_slabs(u, v, w, mask, dx, dy, dz, lambda_reg, tol,
+                          maxiter, solver, mesh) -> CleanResult:
+    """:func:`clean_divergence_variational` over ``mesh``, on this rank's
+    slab. Every slab boundary is even, so the 8 parity sublattices split
+    locally, and a multiple of the parity V-cycle's sharded alignment."""
+    whole = _as_mask(mask, mesh.device)
+    parity_mask = _parity_maps(whole.shape)[0](whole)
+    n_levels = (mg_level_count(parity_mask.shape) if solver != "direct"
+                else 1)
+    g = _SlabGrid(whole, mesh, n_levels, 2, (dx, dy, dz))
+    maskf = g.maskf
+    example = tuple(g.field(a) for a in (u, v, w))
+    m_div_init = g.mean_abs_div(*example)
+
+    if solver == "direct":
+        inv_diag = tuple(1.0 / (1.0 + lambda_reg * d) for d in g.dtd_diag())
+
+        def m_inv(uvw):
+            return tuple(r * di * maskf for r, di in zip(uvw, inv_diag))
+
+        res = pcg(lambda uvw: g.direct_A(uvw, lambda_reg), example,
+                  M_inv=m_inv, tol=tol, maxiter=maxiter, dot=g.dot)
+        sol = res.x
+    else:
+        to_parity, from_parity = _parity_maps(maskf.shape)
+        mg = make_mg_preconditioner_batched(
+            parity_mask, 2 * dx, 2 * dy, 2 * dz, screening=1.0 / lambda_reg,
+            slabs=g.slabs.coarsen(), n_sharded=g.n_sharded)
+
+        def m_inv(r):
+            return from_parity(mg(to_parity(r))) * maskf
+
+        res = pcg(lambda q: g.woodbury_S(q, lambda_reg), g.div_op(example),
+                  M_inv=m_inv, tol=tol, maxiter=maxiter, dot=g.dot)
+        sol = tuple(x - d * maskf for x, d in zip(example,
+                                                  g.div_op_T(res.x)))
+
+    # the NaN fallback, decided alike on every rank
+    bad = bool(g.slabs.sum(torch.stack([torch.isnan(x).any()
+                                        for x in sol]).float()) > 0)
+    u_n, v_n, w_n = example if bad else sol
+    m_div_final = g.mean_abs_div(u_n, v_n, w_n)
+    return CleanResult(*g.gather((u_n, v_n, w_n)), m_div_init, m_div_final,
+                       res.iterations, res.converged and not bad)
 
 
 # ---------------------------------------------------------------------------

@@ -87,8 +87,9 @@ def test_port_never_imports_jax():
     tools and checkpoints included) and running its slices end to end (the
     grid entry points, the pipeline with variational cleaning, every other
     interpolation method, the datasets, the flow analysis with pressure
-    and mesh drag, and the sharded grid path on a one-rank mesh) leaves
-    every ``jax`` module out of ``sys.modules``."""
+    and mesh drag, the sharded grid path and the pipeline step with its
+    z-sharded cleaning on a one-rank mesh) leaves every ``jax`` module out
+    of ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -99,6 +100,8 @@ def test_port_never_imports_jax():
         import ptv_interpolation_tpu_torch.physics
         import ptv_interpolation_tpu_torch.parallel
         import ptv_interpolation_tpu_torch.parallel.slab_store
+        import ptv_interpolation_tpu_torch.parallel.halo
+        import ptv_interpolation_tpu_torch.entry
         import ptv_interpolation_tpu_torch.align
         import ptv_interpolation_tpu_torch.cli.tools
         import ptv_interpolation_tpu_torch.cli.auto_align
@@ -124,11 +127,14 @@ def test_port_never_imports_jax():
         c = sharded_grid_interpolate(pts, vals, grid, make_mesh(device="cpu"),
                                      k=8, block=(2, 4, 8))
         assert bool(torch.isfinite(c).all())
+        from ptv_interpolation_tpu_torch.parallel import make_pipeline_step
+        fluid = np.ones((12, 12, 12), bool)
+        fluid[4:8, 4:8, 4:8] = False
+        step = make_pipeline_step(grid, mesh=make_mesh(device="cpu"), k=8)
+        assert bool(torch.isfinite(step(pts, vals, fluid)[0]).all())
         from ptv_interpolation_tpu_torch.io import PointCloud
         from ptv_interpolation_tpu_torch.pipeline import (PipelineConfig,
                                                           run_pipeline)
-        fluid = np.ones((12, 12, 12), bool)
-        fluid[4:8, 4:8, 4:8] = False
         res = run_pipeline(
             PipelineConfig(method="idw", idw_neighbors=8, filter_outliers=True,
                            filter_neighbors=10, boundary_particles=True,

@@ -1,6 +1,9 @@
-"""The port's multi-GPU paths (``ptv_interpolation_tpu_torch/parallel/``)
-against the JAX package's, the counterparts of ``tests/test_sharding.py``
-but for z-sharded cleaning and the pipeline step (not ported yet).
+"""The port's multi-GPU paths (``ptv_interpolation_tpu_torch/parallel/``,
+the z-sharded cleaning of ``physics.py``) against the JAX package's and
+the port's own one-device results: the counterparts of
+``tests/test_sharding.py``, with the slab stencils, the sharded V-cycle
+and the pipeline step besides (the dry-run entry points are in
+``tests/test_torch_entry.py``).
 
 JAX runs on its 8 virtual CPU devices (``tests/conftest.py``) with
 ``make_mesh(n)``; the port runs a gloo world of processes on the CPU and
@@ -25,6 +28,10 @@ from ptv_interpolation_tpu.parallel.sharding import (
     sharded_grid_interpolate as jax_sharded_grid)
 from ptv_interpolation_tpu.parallel.slab_store import (
     build_slab_store as jax_build_slab_store)
+from ptv_interpolation_tpu.physics import (
+    clean_divergence_projection as jax_projection)
+from ptv_interpolation_tpu.physics import (
+    clean_divergence_variational as jax_variational)
 from ptv_interpolation_tpu_torch.grid import create_grid
 from ptv_interpolation_tpu_torch.io.npz import FieldResult
 
@@ -36,6 +43,9 @@ WORLD = 4
 GRID_CASES = (("problem", "xla"), ("void21", "xla"), ("problem", "fused"),
               ("void23", "fused"))
 BLOCK = (2, 8, 8)
+# the mirror of tests/test_sharding.py's cleaning test, and an odd z extent
+CLEAN_SHAPES = ((16, 16, 16), (19, 16, 16))
+CLEAN_METHODS = ("projection", "variational")
 
 
 def _checkpoint_result():
@@ -69,6 +79,13 @@ def world(tmp_path_factory):
                               kind="grid", cloud=cloud, backend=backend, n=n))
         cases.append(dict(name=f"ckpt-{n}", kind="checkpoint", path=ckpt,
                           n=n))
+        for shape in CLEAN_SHAPES:
+            for method in CLEAN_METHODS:
+                cases.append(dict(name=f"clean-{method}-{shape[0]}-{n}",
+                                  kind="clean", shape=shape, method=method,
+                                  n=n))
+        for kind in ("stencils", "vcycle", "step"):
+            cases.append(dict(name=f"{kind}-{n}", kind=kind, n=n))
     return workers.run_world(WORLD, str(d), cases)
 
 
@@ -302,3 +319,191 @@ def test_checkpoint_restore_onto_mesh(world, n):
             np.testing.assert_array_equal(
                 back[name], padded[rank * rows:(rank + 1) * rows])
             assert back[name].dtype == full.dtype
+
+
+# ---------------------------------------------------------------------------
+# Z-sharded cleaning and the pipeline step
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@functools.lru_cache(maxsize=None)
+def _single_clean(shape, method):
+    """The port's one-device result of a cleaning case (CPU)."""
+    return workers.clean(*workers.clean_problem(shape), method)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_clean(shape, method):
+    mask, u, v, w = workers.clean_problem(shape)
+    if method == "projection":
+        res = jax_projection(u, v, w, mask, 1., 1., 1., iterations=2)
+    else:
+        res = jax_variational(u, v, w, mask, 1., 1., 1., lambda_reg=50.0)
+    return np.stack([np.asarray(t) for t in res[:3]])
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("shape", CLEAN_SHAPES, ids=lambda s: f"nz{s[0]}")
+@pytest.mark.parametrize("method", CLEAN_METHODS)
+def test_sharded_cleaning_matches_jax_and_single_device(world, method, shape,
+                                                        n):
+    """``tests/test_sharding.py``'s z-sharded cleaning test (projection
+    with 2 iterations, variational at λ = 50, on a 16³ mask with a solid
+    column) and the same on an odd z extent, at n = 2 and 4 ranks:
+    within JAX's bar (rtol 1e-3 / atol 1e-5) of the JAX package's
+    one-device result; within relative L2 1e-5 per component of the
+    port's one-device result, with MG-PCG counts within ±2 and both
+    converged; the same bits and counts on every rank."""
+    name = f"clean-{method}-{shape[0]}-{n}"
+    got = _same_on_every_rank(world, name, n, key="uvw")
+    for key in ("div", "iterations", "converged"):
+        for rank in range(1, n):
+            assert world[(name, rank)][key] == world[(name, 0)][key]
+    res = world[(name, 0)]
+    assert got.shape == (3,) + shape
+    np.testing.assert_allclose(got, _jax_clean(shape, method), rtol=1e-3,
+                               atol=1e-5)
+    single = _single_clean(shape, method)
+    for g, s1 in zip(got, single[:3]):
+        assert _rel_l2(g, s1.numpy()) <= 1e-5
+    assert abs(res["iterations"] - single.cg_iterations) <= 2, (
+        res["iterations"], single.cg_iterations)
+    assert res["converged"] and single.converged
+    np.testing.assert_allclose(res["div"], (float(single.mean_abs_div_initial),
+                                            float(single.mean_abs_div_final)),
+                               rtol=1e-5)
+    mask = workers.clean_problem(shape)[0]
+    assert not got[:, ~mask].any()
+
+
+def _single_stencil(name):
+    """The one-device operator ``name`` on ``workers.stencil_problem``,
+    as the one-device solvers apply it, as a tuple of arrays."""
+    from ptv_interpolation_tpu_torch import physics as tp
+    from ptv_interpolation_tpu_torch.ops import stencils as st
+    mask, fields, phi, h = workers.stencil_problem()
+    mask = torch.as_tensor(mask)
+    u, v, w = (torch.as_tensor(f) for f in fields)
+    q = torch.as_tensor(phi)
+    lam = workers.STENCIL_LAMBDA
+    S, _, div_op, div_op_T = tp._woodbury_operators(mask, *h, lam)
+    lap = st.laplacian_coeffs(mask, *h)
+    maskf = mask.float()
+    out = {
+        "divergence": lambda: (st.consistent_divergence(u, v, w, mask, *h),),
+        "divergence_operator": lambda: (st.consistent_divergence(
+            u, v, w, mask, *h, variant="operator"),),
+        "neg_lap": lambda: (-st.laplacian_apply_coeffs(q, lap),),
+        "jacobi": lambda: (tp._jacobi(lap),),
+        "correction": lambda: st.consistent_correction(u, v, w, q, mask, *h),
+        "div_op": lambda: (div_op((u, v, w)),),
+        "div_op_T": lambda: div_op_T(q),
+        "woodbury_S": lambda: (S(q),),
+        "direct_A": lambda: tuple(
+            x * maskf + lam * y * maskf
+            for x, y in zip((u, v, w), div_op_T(div_op((u, v, w))))),
+        "dtd_diag": lambda: st.divergence_dtd_diag(mask, *h),
+    }[name]()
+    return [t.numpy() for t in out]
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("name", list(workers.STENCIL_UNITS))
+def test_slab_stencils_match_single_device(world, name, n):
+    """Each operator that reads z ± 1, on this rank's halo-extended slab
+    (exchanged between the ranks) and cropped, equals the one-device
+    output's planes bit for bit, on a 19×10×12 mask whose fluid touches
+    all six faces: the domain-edge terms land on the outer ranks' outer
+    planes only, and the composed operators (Woodbury's ``S``, the direct
+    ``A``) take a halo of 2 planes. The slabs cover the grid in order."""
+    want = _single_stencil(name)
+    z = 0
+    for rank in range(n):
+        (z0, z1), got = world[(f"stencils-{n}", rank)][name]
+        assert z0 == z and z1 > z0
+        z = z1
+        assert len(got) == len(want)
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_[z0:z1])
+    assert z == workers.stencil_problem()[0].shape[0]
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", list(workers.VCYCLE_CASES))
+def test_sharded_v_cycle_matches_single_device(world, case, n):
+    """The sharded V-cycle (the one-device hierarchy; the fine levels on
+    z-slabs with halo exchanges, the coarser ones whole on every rank
+    after one all-gather) against the one-device V-cycle on the same
+    residual: each rank's slab within 1e-6 relative of the one-device
+    result's planes — on two Poisson masks (all levels sharded, and the
+    last one whole at n = 4) and the 8 parity sublattices with screening."""
+    from ptv_interpolation_tpu_torch.ops.multigrid import (
+        make_mg_preconditioner)
+    mask, r, kw = workers.vcycle_problem(case)
+    want = make_mg_preconditioner(mask, **kw)(r).numpy()
+    n_sharded = {world[(f"vcycle-{n}", rank)][case][1] for rank in range(n)}
+    assert len(n_sharded) == 1 and n_sharded.pop() >= 1
+    parts = []
+    for rank in range(n):
+        (z0, z1), _, got = world[(f"vcycle-{n}", rank)][case]
+        parts.append(got)
+        np.testing.assert_array_equal(got.shape, want[..., z0:z1, :, :].shape)
+    got = np.concatenate(parts, axis=-3)
+    assert _rel_l2(got, want) <= 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _single_step():
+    from ptv_interpolation_tpu_torch.entry import _tiny_problem
+    from ptv_interpolation_tpu_torch.parallel import make_pipeline_step
+    grid, points, values, mask = _tiny_problem()
+    out = make_pipeline_step(grid, k=8, iterations=1, query_tile=64,
+                             device="cpu")(points, values, mask)
+    return np.stack([t.numpy() for t in out[:3]]), float(out[3])
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sharded_pipeline_step_matches_single_device(world, n):
+    """``make_pipeline_step`` over n ranks (IDW with the queries sharded,
+    mask zeroing, z-sharded projection cleaning) against the one-device
+    step with the same query tile: rtol 1e-3 / atol 1e-5, the same bits
+    on every rank."""
+    got = _same_on_every_rank(world, f"step-{n}", n, key="uvw")
+    want, want_div = _single_step()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(world[(f"step-{n}", 0)]["div"], want_div,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("nz,size,align", [(243, 2, 32), (243, 4, 16),
+                                           (19, 4, 2), (16, 4, 2),
+                                           (9, 1, 1)])
+def test_z_slab_plan(nz, size, align):
+    """The slab plan covers the true ``nz`` in rank order, every boundary
+    a multiple of ``align``, the slabs whole units within one of each
+    other but the last, the short one; ``mg_slab_plan`` aligns to the
+    most sharded levels that leave every rank 2 planes on its last
+    sharded level."""
+    from ptv_interpolation_tpu_torch.parallel.halo import (mg_slab_plan,
+                                                           z_slab_plan)
+    from ptv_interpolation_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(None, 0, size, torch.device("cpu"))
+    bounds = z_slab_plan(nz, mesh, align)
+    assert len(bounds) == size and bounds[0][0] == 0 and bounds[-1][1] == nz
+    sizes = [z1 - z0 for z0, z1 in bounds]
+    for (_, z1), (z0, _) in zip(bounds, bounds[1:]):
+        assert z1 == z0 and z0 % align == 0
+    # one unit more or less, the last unit cut short at nz
+    assert max(sizes) - min(sizes) < 2 * align and sizes[-1] == min(sizes)
+    bounds, n_sharded = mg_slab_plan(nz, mesh, 5)
+    step = 1 << (n_sharded - 1)
+    assert all(z0 % step == 0 for z0, _ in bounds)
+    assert min(-(-z1 // step) - z0 // step for z0, z1 in bounds) >= 2
+    if n_sharded < 5:
+        assert -(-nz // (2 * step)) // size < 2
+    with pytest.raises(ValueError):
+        mg_slab_plan(3, Mesh(None, 0, 2, torch.device("cpu")), 1)

@@ -104,6 +104,151 @@ def _case_checkpoint(mesh, path):
         for name in ("x", "y", "z", "u", "v", "w", "mask")}
 
 
+def clean_problem(shape=(16, 16, 16)):
+    """``tests/test_sharding.py``'s cleaning problem: a mask with a solid
+    column ``[:, :4, :4]`` and seeded normal fields, zero on solid."""
+    rng = np.random.default_rng(12)
+    mask = np.ones(shape, bool)
+    mask[:, :4, :4] = False
+    u, v, w = (rng.normal(size=shape).astype(np.float32) * mask
+               for _ in range(3))
+    return mask, u, v, w
+
+
+def clean(mask, u, v, w, method, mesh=None, device="cpu"):
+    """The mirror's two solves: projection (2 iterations) and variational
+    at λ = 50, unit spacing."""
+    from ptv_interpolation_tpu_torch.physics import (
+        clean_divergence_projection, clean_divergence_variational)
+    if method == "projection":
+        return clean_divergence_projection(u, v, w, mask, 1., 1., 1.,
+                                           iterations=2, device=device,
+                                           mesh=mesh)
+    return clean_divergence_variational(u, v, w, mask, 1., 1., 1.,
+                                        lambda_reg=50.0, device=device,
+                                        mesh=mesh)
+
+
+def stencil_problem(shape=(19, 10, 12)):
+    """A mask whose fluid touches all six faces (70% fluid at random),
+    three fields, a potential and the anisotropic spacing."""
+    rng = np.random.default_rng(31)
+    mask = rng.random(shape) > 0.3
+    u, v, w, phi = (rng.normal(size=shape).astype(np.float32)
+                    for _ in range(4))
+    return mask, (u, v, w), phi, (1.0, 0.9, 1.2)
+
+
+# the slab operators of ``physics._SlabGrid`` and the rule itself applied
+# to ``consistent_divergence``'s 'operator' variant: name → the plan's
+# unit (2 for the variational cleaner's operators)
+STENCIL_UNITS = {"divergence": 1, "divergence_operator": 1, "neg_lap": 1,
+                 "jacobi": 1, "correction": 1, "div_op": 2, "div_op_T": 2,
+                 "woodbury_S": 2, "direct_A": 2, "dtd_diag": 2}
+STENCIL_LAMBDA = 50.0
+
+
+def slab_stencil(g, name, fields, phi):
+    """The slab operator ``name`` on this rank's slabs, as a tuple."""
+    from ptv_interpolation_tpu_torch.ops.stencils import consistent_divergence
+    sl = g.slabs
+    u, v, w = (g.slabs.take(f) for f in fields)
+    q = sl.take(phi)
+    if name == "divergence":
+        return (g.divergence(u, v, w),)
+    if name == "divergence_operator":
+        return (sl.crop(consistent_divergence(
+            sl.extend(u), sl.extend(v), sl.extend(w), g.mask_e[0], *g.h,
+            variant="operator")),)
+    if name == "neg_lap":
+        return (g.neg_lap(q),)
+    if name == "jacobi":
+        return (g.jacobi(),)
+    if name == "correction":
+        return g.correction(u, v, w, q)
+    if name == "div_op":
+        return (g.div_op((u, v, w)),)
+    if name == "div_op_T":
+        return g.div_op_T(q)
+    if name == "woodbury_S":
+        return (g.woodbury_S(q, STENCIL_LAMBDA),)
+    if name == "direct_A":
+        return g.direct_A((u, v, w), STENCIL_LAMBDA)
+    if name == "dtd_diag":
+        return g.dtd_diag()
+    raise ValueError(name)
+
+
+def _case_stencils(mesh):
+    from ptv_interpolation_tpu_torch.physics import _SlabGrid
+    mask, fields, phi, h = stencil_problem()
+    out = {}
+    for name, unit in STENCIL_UNITS.items():
+        g = _SlabGrid(mask, mesh, 1, unit, h)
+        out[name] = ((g.slabs.z0, g.slabs.z1),
+                     [t.numpy() for t in slab_stencil(g, name, fields, phi)])
+    return out
+
+
+# V-cycle cases: (mask shape, parity-batched with screening)
+VCYCLE_CASES = {"poisson24": ((24, 20, 22), False),
+                "poisson37": ((37, 20, 18), False),
+                "parity37": ((37, 20, 18), True)}
+
+
+def vcycle_problem(name):
+    """The mask (8 parity sublattices for a parity case), a residual on
+    it, and ``make_mg_preconditioner``'s keywords."""
+    from ptv_interpolation_tpu_torch.physics import _parity_maps
+    shape, parity = VCYCLE_CASES[name]
+    rng = np.random.default_rng(41)
+    mask = torch.as_tensor(rng.random(shape) > 0.25)
+    mask[:, :5, :5] = False
+    r = torch.as_tensor(rng.normal(size=shape).astype(np.float32)) * mask
+    kw = dict(dx=1.0, dy=0.9, dz=1.2)
+    if parity:
+        to_parity = _parity_maps(shape)[0]
+        mask, r = to_parity(mask), to_parity(r)
+        kw = dict(dx=2.0, dy=1.8, dz=2.4, screening=1.0 / 200.0)
+    return mask, r, kw
+
+
+def _case_vcycle(mesh):
+    from ptv_interpolation_tpu_torch.ops.multigrid import (
+        make_mg_preconditioner, mg_level_count)
+    from ptv_interpolation_tpu_torch.parallel.halo import (ZSlabs,
+                                                           mg_slab_plan)
+    out = {}
+    for name in VCYCLE_CASES:
+        mask, r, kw = vcycle_problem(name)
+        bounds, n_sharded = mg_slab_plan(mask.shape[-3], mesh,
+                                         mg_level_count(mask.shape))
+        slabs = ZSlabs(mesh, bounds)
+        m_inv = make_mg_preconditioner(mask, slabs=slabs,
+                                       n_sharded=n_sharded, **kw)
+        out[name] = (bounds[mesh.rank], n_sharded,
+                     m_inv(slabs.take(r)).numpy())
+    return out
+
+
+def _case_clean(mesh, shape, method):
+    res = clean(*clean_problem(shape), method, mesh=mesh)
+    return {"uvw": np.stack([t.numpy() for t in res[:3]]),
+            "div": (float(res.mean_abs_div_initial),
+                    float(res.mean_abs_div_final)),
+            "iterations": res.cg_iterations, "converged": res.converged}
+
+
+def _case_step(mesh):
+    from ptv_interpolation_tpu_torch.entry import _tiny_problem
+    from ptv_interpolation_tpu_torch.parallel import make_pipeline_step
+    grid, points, values, mask = _tiny_problem()
+    out = make_pipeline_step(grid, mesh=mesh, k=8, iterations=1,
+                             query_tile=64)(points, values, mask)
+    return {"uvw": np.stack([t.numpy() for t in out[:3]]),
+            "div": float(out[3])}
+
+
 def _run_case(mesh, case):
     kind = case["kind"]
     if kind == "values":
@@ -112,6 +257,14 @@ def _run_case(mesh, case):
         return _case_grid(mesh, case["cloud"], case["backend"])
     if kind == "checkpoint":
         return _case_checkpoint(mesh, case["path"])
+    if kind == "clean":
+        return _case_clean(mesh, case["shape"], case["method"])
+    if kind == "stencils":
+        return _case_stencils(mesh)
+    if kind == "vcycle":
+        return _case_vcycle(mesh)
+    if kind == "step":
+        return _case_step(mesh)
     raise ValueError(f"unknown case kind {kind!r}")
 
 
