@@ -137,7 +137,21 @@ and the script exits non-zero:
    bit against the single-device ``interpolate_values``; (d)
    ``make_pipeline_step`` in the 1-rank world (IDW k=16, one projection
    iteration), timed, finite, the solid 0; (e) ``entry.dryrun_multichip(2)``
-   on the card. The ranks' kernel-1 launches count in the record.
+   on the card. The ranks' kernel-1 launches count in the record;
+15. the serving daemon and approximate selection: (a) in 12a's directory,
+   ``cli.main`` with 12a's flags as 3 fresh processes, then
+   ``ptv_interpolation_tpu_torch.daemon`` started and 3 ``dispatch``
+   requests of the same command, then ``cli.analyze_flow`` as one fresh
+   process and 2 requests; each wall, the start wall, the processes on
+   the card and the idle daemon's device memory (the card's memory in
+   use, daemon idle against stopped). Gated on ``dispatch`` never
+   returning None, every rc 0, the daemon's NPZ bit for bit 12a's, one
+   more process on the card while it serves, a bad argv's nonzero rc with
+   the server still up, and after ``stop`` status 1 with the socket gone.
+   The daemon's kernel launches happen in its own process and do not
+   count in the record. (b) ``tau_mode='approx'`` (served by exact
+   selection) against ``'exact'`` on phase 9's problem: bit for bit, and
+   relative L2 ≤ 1e-6 against f64 scipy on 20 000 interior nodes.
 
 The script's wall is printed before the kernels' record. The second-to-last
 line of standard output is the kernels' JSON record
@@ -155,6 +169,7 @@ null: no one PyTorch call computes these functions), the last line
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1923,6 +1938,213 @@ def phase_cli(torch, fluid, pts, vals, tmp, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The serving daemon against cold processes, and approximate selection
+# (phase 15)
+# ---------------------------------------------------------------------------
+
+N_COLD = 3
+
+
+def _card_processes():
+    """``(lines, MiB used)``: the card's compute processes as nvidia-smi
+    lists them (``pid, used_memory``) and its memory in use. In a
+    container nvidia-smi may not map the pids into its namespace, so the
+    daemon is told apart by the count of processes and the memory that
+    goes with it when it stops."""
+    def smi(*args):
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=60,
+                              check=True).stdout.strip()
+    apps = [line.strip() for line in smi(
+        "--query-compute-apps=pid,used_memory",
+        "--format=csv,noheader").splitlines() if line.strip()]
+    used = float(smi("--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits").splitlines()[0])
+    return apps, used
+
+
+def _npz_fields(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _same_fields(got, want):
+    return sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+
+
+def phase_daemon(torch, tmp, dev="cuda"):
+    """Phase 15a in 12a's directory ``tmp``: ``cli.main`` with
+    ``_cli_flags`` as fresh processes and through the daemon, then
+    ``cli.analyze_flow`` likewise. ``dev="cpu"`` rehearses it on the CPU
+    (the daemon without its CUDA warm-up, no device memory read)."""
+    import contextlib
+    import io
+    from ptv_interpolation_tpu_torch import daemon
+    log("== 15a. cold processes against the serving daemon: cli.main "
+        "(porous_glass flags), then cli.analyze_flow")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for name in ("PTV_DAEMON_PLATFORM", "PTV_IN_DAEMON", "PTV_DAEMON"):
+        env.pop(name, None)
+    extra = []
+    if dev != "cuda":
+        env["PTV_DAEMON_PLATFORM"] = "cpu"
+        extra = ["--device", dev]
+    sock_dir = tempfile.mkdtemp(prefix="ptvd")
+    if len(sock_dir) > 80:          # a Unix socket's path has ~107 bytes
+        sock_dir = tempfile.mkdtemp(prefix="ptvd", dir="/tmp")
+    env["PTV_DAEMON_DIR"] = sock_dir
+    ref = _npz_fields(os.path.join(tmp, "field.npz"))
+    saved_env, cwd = dict(os.environ), os.getcwd()
+    os.environ.clear()
+    os.environ.update(env)
+    os.chdir(tmp)
+
+    def cold(module, argv):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", module, *argv], env=env,
+                             capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"15a: {module} exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        return wall
+
+    def served(entry, argv):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = daemon.dispatch(entry, argv)
+        wall = time.perf_counter() - t0
+        if rc is None:
+            raise AssertionError("15a: the daemon is unavailable")
+        if rc != 0:
+            raise AssertionError(f"15a: the daemon's {entry} returned rc "
+                                 f"{rc}: {printed.getvalue()[-2000:]}")
+        return wall
+
+    def analyze_argv(tag):
+        return ["--input", "field.npz", "--no-interactive", "--output-npz",
+                f"analysis_{tag}.npz"] + extra
+
+    started = False
+    if dev == "cuda":
+        apps0, _ = _card_processes()
+    try:
+        cold_walls = [cold("ptv_interpolation_tpu_torch.cli.main",
+                           _cli_flags("tracks.csv", "solid.tif",
+                                      f"cold{i}.npz") + extra)
+                      for i in range(N_COLD)]
+        log("  cold cli.main processes: "
+            + ", ".join(f"{w:.4f}" for w in cold_walls)
+            + f" s; median {float(np.median(cold_walls)):.4f} s")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = daemon.main(["start"])
+        start_wall = time.perf_counter() - t0
+        started = rc == 0
+        if not started:
+            raise AssertionError("15a: the daemon did not start")
+        sock = daemon.socket_path()
+        log(f"  daemon start (spawn, torch import, CUDA context, three "
+            f"kernel libraries): {start_wall:.4f} s")
+        warm = [served("interpolate", _cli_flags(
+            "tracks.csv", "solid.tif", f"daemon{i}.npz") + extra)
+            for i in range(3)]
+        log("  daemon cli.main requests: "
+            + ", ".join(f"{w:.4f}" for w in warm) + " s (first, then two "
+            f"warm); median of the warm two {float(np.median(warm[1:])):.4f}"
+            f" s")
+        an_cold = cold("ptv_interpolation_tpu_torch.cli.analyze_flow",
+                       analyze_argv("cold"))
+        an_warm = [served("analyze", analyze_argv(f"daemon{i}"))
+                   for i in range(2)]
+        log(f"  cli.analyze_flow: cold process {an_cold:.4f} s; daemon "
+            f"requests " + ", ".join(f"{w:.4f}" for w in an_warm) + " s")
+        if dev == "cuda":
+            apps1, used1 = _card_processes()
+            log(f"  processes on the card (nvidia-smi pid, memory): before "
+                f"the daemon {apps0}; daemon idle {apps1}")
+
+        outputs = {f"daemon{i}": _npz_fields(f"daemon{i}.npz")
+                   for i in range(3)}
+        outputs.update({f"cold{i}": _npz_fields(f"cold{i}.npz")
+                        for i in range(N_COLD)})
+        equal = {tag: _same_fields(f, ref) for tag, f in outputs.items()}
+        log("  NPZ bit for bit equal to 12a's field.npz: "
+            + ", ".join(f"{t} {e}" for t, e in equal.items()))
+        if not all(equal[f"daemon{i}"] for i in range(3)):
+            raise AssertionError("15a: the daemon's NPZ differs from 12a's")
+        an = [_npz_fields(f"analysis_{t}.npz")
+              for t in ("cold", "daemon0", "daemon1")]
+        log(f"  analysis NPZ of the daemon equal to the cold process's: "
+            f"{_same_fields(an[1], an[0])}, {_same_fields(an[2], an[0])}")
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            bad = daemon.dispatch("interpolate", ["--definitely-not-a-flag"])
+            up = daemon.main(["status"]) == 0
+        log(f"  bad argv: rc {bad}; server still up: {up}")
+        if bad in (0, None) or not up:
+            raise AssertionError("15a: a bad argv must return a nonzero rc "
+                                 "and leave the server up")
+    finally:
+        if started:
+            with contextlib.redirect_stdout(io.StringIO()):
+                daemon.main(["stop"])
+        os.environ.clear()
+        os.environ.update(saved_env)
+        os.chdir(cwd)
+    with contextlib.redirect_stdout(io.StringIO()):
+        status = daemon.main(["status", sock])
+    gone = not os.path.exists(sock)
+    shutil.rmtree(sock_dir, ignore_errors=True)
+    log(f"  after stop: status {status}, socket removed {gone}")
+    if status != 1 or not gone:
+        raise AssertionError("15a: the daemon did not stop")
+    if dev == "cuda":
+        deadline = time.time() + 30
+        while True:             # the process lets go of the card on exit
+            apps2, used2 = _card_processes()
+            if len(apps2) < len(apps1) or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        log(f"  idle daemon's device memory (nvidia-smi memory.used, daemon "
+            f"idle − stopped): {used1 - used2:.0f} MiB; processes after "
+            f"stop {apps2}")
+        if not (len(apps1) == len(apps0) + 1 and len(apps2) == len(apps0)):
+            raise AssertionError("15a: the daemon was not one process on "
+                                 "the card while it served")
+
+
+def phase_approx(torch, k):
+    """Phase 15b: ``tau_mode='approx'`` against ``'exact'`` on phase 9's
+    problem."""
+    from ptv_interpolation_tpu_torch.interpolate import (
+        sibson_grid_interpolate)
+    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
+    log(f"== 15b. tau_mode='approx' (served by exact selection) against "
+        f"'exact', {SMALL_POINTS} points → {SMALL_N}³")
+    pts, vals, grid = uniform_problem()
+    outs = {}
+    for mode in ("approx", "exact"):
+        out, wall = _synced(torch, lambda: sibson_grid_interpolate(
+            pts, vals, grid, k=k, tau_mode=mode, device="cuda"))
+        outs[mode] = out
+        log(f"  tau_mode={mode!r}: {wall:.4f} s, repair ladder "
+            f"{gk.repair_empty_nodes.last_stages}")
+    same = torch.equal(outs["approx"], outs["exact"])
+    l2 = _interior_l2(torch, outs["approx"], pts, vals, grid)
+    log(f"  approx bit for bit equal to exact: {same}; relative L2 vs f64 "
+        f"scipy on 20000 interior nodes {l2:.3e} (limit {L2_LIMIT:.0e})")
+    if not same:
+        raise AssertionError("15b: tau_mode='approx' differs from 'exact'")
+    if not l2 <= L2_LIMIT:
+        raise AssertionError(f"15b: relative L2 {l2:.3e} exceeds "
+                             f"{L2_LIMIT:.0e}")
+
+
 def analysis_field(n=ANALYSIS_N):
     """``tools/profile_analysis.py::make_field``: a gyroid-like solid and
     a smooth analytic velocity at n³. Returns ``(u, v, w, x, y, z,
@@ -2717,7 +2939,7 @@ def main():
     from bench import GRID_N, K, make_problem
     from ptv_interpolation_tpu_torch.grid import create_grid
 
-    phase_environment(torch)
+    smi = phase_environment(torch)
     phase_build()
     pts, vals = make_problem()
     grid = create_grid(((0, GRID_N + 1),) * 3, GRID_N)
@@ -2753,6 +2975,9 @@ def main():
         phase_validations(torch)
         torch.cuda.empty_cache()
         phase_tools(torch, tmp, pts, vals)
+        torch.cuda.empty_cache()
+        phase_daemon(torch, tmp)
+        phase_approx(torch, K)
     del fluid, pts, vals
     torch.cuda.empty_cache()
     with shard_dir:
@@ -2763,6 +2988,7 @@ def main():
         f"{shard_launches} (phase 14, every rank); "
         f"fused_mad {mad_launches} (phase 6) + {clean_mad} (phase 10) + "
         f"{cli_mad} (phase 12a); pallas_grid_knn {pl_launches} (phase 8)")
+    log(smi)                     # the card again, for a log read from its tail
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{

@@ -7,9 +7,9 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from ptv_interpolation_tpu_torch.analyze import AnalyzeConfig, run_analysis
-from ptv_interpolation_tpu_torch.cli import DAEMON_HELP, note_inline_run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,7 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-interactive", action="store_false", dest="interactive")
     p.add_argument("--no-tiffs", action="store_false", dest="save_tiffs",
                    default=True)
-    p.add_argument("--daemon", "-D", action="store_true", help=DAEMON_HELP)
+    p.add_argument("--daemon", "-D", action="store_true",
+                   help="Run through the persistent serving daemon "
+                        "(ptv-torch-daemon); also enabled by PTV_DAEMON=1. "
+                        "Implies --no-interactive.")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default), cuda:N or "
                         "cpu")
@@ -97,7 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    note_inline_run(args.daemon)
+    from ptv_interpolation_tpu_torch import daemon
+    if daemon.wants_daemon(args.daemon) and not os.environ.get("PTV_IN_DAEMON"):
+        fwd = [a for a in (argv if argv is not None else sys.argv[1:])
+               if a not in ("--daemon", "-D")]
+        fwd.append("--no-interactive")  # the daemon cannot open a viewer here
+        rc = daemon.dispatch("analyze", fwd)
+        if rc is not None:
+            return rc
+        print("daemon unavailable; running inline", file=sys.stderr)
     basename = os.path.splitext(os.path.basename(args.input))[0]
     output_npz = args.output_npz
     if output_npz is None:

@@ -5,8 +5,9 @@
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
-from ptv_interpolation_tpu_torch.cli import DAEMON_HELP, note_inline_run
 from ptv_interpolation_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
 
@@ -50,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="bisect",
                    help="Grid-kernel k-th-distance selection: 'bisect' "
                         "(exact, default), 'approx' (approx_min_k fast "
-                        "mode), 'exact' (top_k oracle)")
+                        "mode; exact selection on this port), 'exact' "
+                        "(top_k oracle)")
     p.add_argument("--cubic-fallback", action="store_true",
                    help="method=cubic is 2D-only in scipy griddata; opt in "
                         "to the documented 3D substitute (rbf kernel=cubic)")
@@ -82,7 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(method=linear) across runs; repeated runs on the "
                         "same point cloud skip the Qhull build (~43 s at "
                         "1M points). Also honors $PTV_TRI_CACHE_DIR.")
-    p.add_argument("--daemon", "-D", action="store_true", help=DAEMON_HELP)
+    p.add_argument("--daemon", "-D", action="store_true",
+                   help="Run through the persistent serving daemon "
+                        "(ptv-torch-daemon): the first request warms the "
+                        "process once, later invocations skip the "
+                        "fresh-process start-up and kernel load cost "
+                        "entirely. Also enabled by PTV_DAEMON=1. Implies "
+                        "--no-plot.")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default), cuda:N or "
                         "cpu")
@@ -91,7 +99,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    note_inline_run(args.daemon)
+    from ptv_interpolation_tpu_torch import daemon
+    if daemon.wants_daemon(args.daemon) and not os.environ.get("PTV_IN_DAEMON"):
+        fwd = [a for a in (argv if argv is not None else sys.argv[1:])
+               if a not in ("--daemon", "-D")]
+        if not args.no_plot:
+            fwd.append("--no-plot")  # the daemon cannot open a viewer here
+        rc = daemon.dispatch("interpolate", fwd)
+        if rc is not None:
+            return rc
+        print("daemon unavailable; running inline", file=sys.stderr)
     config = PipelineConfig(
         input=args.input, mask=args.mask, downscale=args.downscale,
         divergence_free=args.divergence_free, iterations=args.iterations,

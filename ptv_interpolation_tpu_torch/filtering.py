@@ -176,8 +176,8 @@ def knn_mad_mask_scatter(points, values, k: int = 25, threshold: float = 3.0,
     on the host in f64, up to 5% through the exact scatter-block kNN, and
     past that (pathological coverage) every point takes the selection
     path. Where ``fused_mad_filter`` declines (panel past its bounds), or
-    when ``kwargs`` pin the selection (``exact_topk``; ``recall_target``
-    raises ``NotImplementedError``), the scatter-block kNN serves
+    when ``kwargs`` pin the selection (``exact_topk``, ``recall_target``:
+    both served by exact selection), the scatter-block kNN serves
     directly. The JAX package takes the fused route on a TPU only; here
     it is the route on both devices.
 

@@ -214,6 +214,16 @@ _mad_eval.launches = 0
 _mad_eval.last_overflow = None
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded √x, as the kernel's ``sqrtf``. On the CPU through
+    numpy: PyTorch's CPU ``sqrt`` is off by an ulp on some inputs, and at
+    several intra-op threads one worker's share of a process's first call
+    came out up to 3.1e-4 off while the same call at one thread did not."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def _count(mask: torch.Tensor) -> torch.Tensor:
     """#True along the last axis, kept as a size-1 axis (int32)."""
     return mask.sum(dim=-1, keepdim=True, dtype=torch.int32)
@@ -302,7 +312,7 @@ def _mad_eval_plain(m2: float, cand: torch.Tensor, qx: torch.Tensor,
         is_pad = qxb >= 1e18
         o = out[b0:b1]
         o[:, 0] = (keep.float() + 2.0 * covered.float())[..., 0]
-        o[:, 1] = torch.where(is_pad, torch.inf, torch.sqrt(tau2))[..., 0]
+        o[:, 1] = torch.where(is_pad, torch.inf, _sqrt_rn(tau2))[..., 0]
         o[:, 2] = med[..., 0]
         o[:, 3] = mad[..., 0]
     return out

@@ -25,9 +25,11 @@ its nodes against them:
   points.
 
 Blocks are evaluated in chunks whose (blocks, B, C) panels stay bounded.
-Selection is exact everywhere: ``approx_min_k`` (``tau_mode='approx'``,
-``recall_target``) has no counterpart here and raises
-``NotImplementedError``.
+Selection is exact everywhere. The approximate modes (``tau_mode='approx'``,
+``exact_topk=False``, ``recall_target``) are served by exact selection:
+off the TPU ``approx_min_k`` is an exact sort, whose values the exact
+path gives bit for bit (only its order among tied distances differs),
+and exact selection meets any recall target.
 """
 
 from __future__ import annotations
@@ -349,14 +351,13 @@ def _weighted_block_sum(cells: CellList, values_sorted: torch.Tensor, axes,
 
 
 def _tau_mode(tau_mode: str, exact_tau: bool) -> str:
-    """The selection mode, ``'bisect'`` or ``'exact'``; ``'approx'``
-    (``approx_min_k``) raises ``NotImplementedError``."""
+    """The selection path, ``'bisect'`` or ``'exact'``: ``'approx'``
+    (``approx_min_k``) takes the exact one, τ² = min(k-th d², margin²)
+    where covered, as the JAX package forms it for both modes."""
     mode = "exact" if exact_tau else tau_mode
-    if mode not in ("bisect", "exact"):
-        raise NotImplementedError(
-            f"tau_mode={tau_mode!r} (approx_min_k selection) has no PyTorch "
-            f"counterpart and is not ported; use 'bisect' or 'exact'")
-    return mode
+    if mode not in ("bisect", "exact", "approx"):
+        raise ValueError(f"unknown tau_mode {tau_mode!r}")
+    return "bisect" if mode == "bisect" else "exact"
 
 
 def _reassemble_blocks(rows: torch.Tensor, block: Tuple[int, int, int],
@@ -384,9 +385,8 @@ def _grid_block_weighted_sum(cells: CellList, values_sorted: torch.Tensor,
     at the nodes the coverage sentinel flags for repair.
 
     ``tau_mode``: ``'bisect'`` (τ² by 24 halvings of [0, margin²]) or
-    ``'exact'`` (top-k; ``exact_tau=True`` is the same). ``'approx'``
-    (``approx_min_k``) has no counterpart and raises
-    ``NotImplementedError``."""
+    ``'exact'`` (top-k; ``exact_tau=True`` is the same); ``'approx'``
+    takes the exact path."""
     mode = _tau_mode(tau_mode, exact_tau)
     nz, ny, nx = grid_shape
     bz, by, bx = block
@@ -436,6 +436,40 @@ def _generic_knn_fallback(points, values, queries, mode: str, power: float,
 # ---------------------------------------------------------------------------
 # Repair
 # ---------------------------------------------------------------------------
+
+def _celllist_repair_eval(cells: CellList, values: torch.Tensor,
+                          queries: torch.Tensor, k: int, rings: int,
+                          mode: str, power: float, guard_radius,
+                          query_tile: int = 512):
+    """IDW/sibson at ``queries`` over the exact k nearest of each one's
+    ``(2·rings+1)³`` cell neighbourhood (the generic search,
+    :func:`~ptv_interpolation_tpu_torch.ops.neighbors.celllist_tile_fn`,
+    with original point ids), plus a coverage certificate.
+
+    Returns ``(vals, good)``: (Q, V) weighted sums and (Q,) bool, True iff
+    the k-th neighbour is a point within ``guard_radius`` (taken as an
+    f32 value) — then the neighbourhood provably holds the true k-set.
+    The stage :func:`repair_empty_nodes` takes when no cell-sorted values
+    are given."""
+    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+        _gather_rows, _idw_weights, _sibson_weights)
+    from ptv_interpolation_tpu_torch.ops.neighbors import (celllist_tile_fn,
+                                                           map_query_tiles)
+    neighbor = celllist_tile_fn(cells, k, rings, exact_topk=True)
+    g32 = torch.tensor(np.float32(guard_radius), device=cells.device)
+
+    def tile(q_tile):
+        sq, idx = neighbor(q_tile)
+        ok = idx >= 0
+        dist = torch.sqrt(torch.clamp_min(torch.where(ok, sq, 1.0), 0.0))
+        good = ok[:, -1] & (dist[:, -1] <= g32)
+        w = (_idw_weights(dist, power, ok) if mode == "idw"
+             else _sibson_weights(dist, ok))
+        vals = _gather_rows(values, idx)                      # (T, k, V)
+        return (w[..., None] * vals).sum(dim=1), good
+
+    return map_query_tiles(tile, queries, query_tile)
+
 
 def _celllist_repair_eval_csr(cells: CellList, values_sorted: torch.Tensor,
                               queries: torch.Tensor, k: int, rings: int,
@@ -494,16 +528,21 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
        ``fused_subset_weighted_sum``, or the streaming subset evaluator
        when its panel is too wide — only when the uncovered blocks are
        few for the nodes (``n_blocks·B ≤ max(32·n_fix, 64·B)``);
-    3. when the subset stage did not run, the cell-list CSR stage: each
+    3. when the subset stage did not run, the cell-list stage: each
        node's ``(2·rings+1)³`` cell neighbourhood at a guard radius of
        ``rings·cell_size`` ≥ 1.6× the margin (``rings ≤ 6`` and at most
-       16 384 candidates per node);
+       16 384 candidates per node) — τ² bisected over the CSR panel
+       (:func:`_celllist_repair_eval_csr`) when ``values_sorted`` is
+       given, else the exact k nearest of the generic search
+       (:func:`_celllist_repair_eval`, the JAX package's table form);
     4. exact brute force against the whole cloud for the rest, in chunks
        of 131 072 nodes.
 
-    Stages 1–3 need ``cells``, ``margin``, ``values_sorted`` (and
-    ``block`` for 1–2). ``out``: (nz, ny, nx, V) and ``den``: (nz, ny, nx)
-    tensors on one device; ``skip_mask`` (True = skip) excludes nodes the
+    Stages 1–2 need ``cells``, ``margin``, ``values_sorted`` and
+    ``block``; stage 3 ``cells`` and ``margin``. Every cell list of the
+    port serves the table form: the JAX package's dense per-cell table
+    holds the CSR panel's candidates in its slot order. ``out``: (nz, ny,
+    nx, V) and ``den``: (nz, ny, nx) tensors on one device; ``skip_mask`` (True = skip) excludes nodes the
     caller overwrites anyway. The CUDA device runs the kernels, the CPU
     their plain versions. Returns the repaired (nz, ny, nx, V) field.
 
@@ -526,9 +565,9 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
     repair_empty_nodes.last_stages = stages
     if flat.numel() == 0:
         return out
-    ladder = (cells is not None and margin is not None
-              and values_sorted is not None)
-    if ladder and block is not None:
+    ladder = cells is not None and margin is not None
+    shared = ladder and block is not None and values_sorted is not None
+    if shared:
         from ptv_interpolation_tpu_torch.ops import fused_grid_knn
         res = fused_grid_knn.fused_repair(
             out, den, skip_mask, cells, values_sorted, grid, k, mode, power,
@@ -540,7 +579,7 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
                 return out
             # the widened margin could not certify these: brute force
             flat = uncovered(den)
-            ladder = False
+            ladder = shared = False
 
     n_fix = flat.numel()
     nz, ny, nx = den.shape
@@ -554,7 +593,7 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
     todo = torch.arange(n_fix, device=dev)
     ran_subset = False
 
-    if ladder and block is not None:
+    if shared:
         sub = _repair_subset_stage(cells, values_sorted, grid, kk, mode,
                                    power, tuple(block), float(margin),
                                    (iz, iy, ix), n_fix, V)
@@ -574,9 +613,14 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
         # which streams the points instead
         if rings <= 6 and n_cand <= 16384:
             qp, m = _pad_pow2(queries)
-            vals_cl, good = _celllist_repair_eval_csr(
-                cells, values_sorted, qp, kk, rings, mode, float(power),
-                rings * cell_size, query_tile=256)
+            if values_sorted is not None:
+                vals_cl, good = _celllist_repair_eval_csr(
+                    cells, values_sorted, qp, kk, rings, mode, float(power),
+                    rings * cell_size, query_tile=256)
+            else:
+                vals_cl, good = _celllist_repair_eval(
+                    cells, as_f32(values, dev), qp, kk, rings, mode,
+                    float(power), rings * cell_size, query_tile=256)
             good = good[:m]
             fixed[good] = vals_cl[:m][good]
             todo = todo[~good]
@@ -673,6 +717,7 @@ def grid_weighted_interpolate(points, values, grid: Grid, k: int,
                               cell_size: float | None = None,
                               block: Tuple[int, int, int] | None = None,
                               margin_factor: float = 1.45,
+                              recall_target: float = 0.9,
                               backend: str = "auto", mode: str = "sibson",
                               power: float = 2.0, exact_tau: bool = False,
                               tau_mode: str = "bisect", skip_mask=None,
@@ -695,9 +740,11 @@ def grid_weighted_interpolate(points, values, grid: Grid, k: int,
       ``block``, ``skip_mask`` and the τ options are ignored.
 
     ``tau_mode``: ``'bisect'`` or ``'exact'`` (``exact_tau=True``);
-    ``'approx'`` raises ``NotImplementedError``. When no cell resolution
-    fits the block paths' row capacity (e.g. >1024 coincident points),
-    the whole grid goes through exact brute-force kNN."""
+    ``'approx'`` takes the exact selection, which meets any
+    ``recall_target``. When no cell resolution fits the block paths' row
+    capacity (e.g. >1024 coincident points), the whole grid goes through
+    exact brute-force kNN."""
+    del recall_target                    # every selection here is exact
     if block is None:
         block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
     if backend == "pallas":
@@ -716,7 +763,7 @@ def grid_weighted_interpolate(points, values, grid: Grid, k: int,
     if backend == "fused" and (exact_tau or tau_mode != "bisect"):
         raise ValueError(
             "backend='fused' implements tau_mode='bisect' only; use "
-            "backend='xla' for the exact selection mode")
+            "backend='xla' for approx/exact selection modes")
     _tau_mode(tau_mode, exact_tau)
     if backend == "fused" or (
             backend == "auto" and canned and tau_mode == "bisect"
@@ -798,7 +845,7 @@ def grid_knn_apply(points, values, grid: Grid, k: int, consume_fn: Callable,
                    cell_size: float | None = None,
                    block: Tuple[int, int, int] = (8, 8, 8),
                    margin_factor: float = 1.45, exact_topk: bool = False,
-                   needs_positions: bool = True,
+                   recall_target: float = 0.99, needs_positions: bool = True,
                    device="cuda") -> torch.Tensor:
     """Evaluate ``consume_fn`` on the k nearest ``points`` of every grid
     node on ``device``: ``consume_fn(sq_dists, neighbor_pos,
@@ -807,13 +854,10 @@ def grid_knn_apply(points, values, grid: Grid, k: int, consume_fn: Callable,
 
     The cell size makes each block's candidate region cover the expected
     k-th-neighbour radius times ``margin_factor``; nodes whose true k-set
-    reaches beyond it get the k nearest of the region. Only exact
-    selection is ported: ``exact_topk=False`` (``approx_min_k``) raises
-    ``NotImplementedError``."""
-    if not exact_topk:
-        raise NotImplementedError(
-            "approximate selection (approx_min_k) has no PyTorch "
-            "counterpart and is not ported; pass exact_topk=True")
+    reaches beyond it get the k nearest of the region. Selection is
+    exact: ``exact_topk=False`` (``approx_min_k`` at ``recall_target``) is
+    served by the same top-k, ties in slot order."""
+    del exact_topk, recall_target        # every selection here is exact
     cells, values_sorted, axes, margin, mc, row_len, _ = _host_setup(
         points, values, grid, k, block, margin_factor, device=device,
         cells=cells, cell_size=cell_size)
@@ -882,7 +926,7 @@ def _scatter_block_eval(cells: CellList, values_sorted: torch.Tensor,
 def scatter_knn_apply(points, values, queries, k: int, consume_fn: Callable,
                       out_dim: int, cell_size: float | None = None,
                       margin_factor: float = 1.45, exact_topk: bool = False,
-                      recall_target: float | None = None,
+                      recall_target: float = 0.99,
                       device="cuda") -> np.ndarray:
     """Block-centric kNN over *arbitrary* query points on ``device``:
     queries are bucketed into margin-sized spatial blocks on the host,
@@ -890,14 +934,9 @@ def scatter_knn_apply(points, values, queries, k: int, consume_fn: Callable,
     for point-cloud self-queries (the kNN-MAD filter's exact re-decide).
     Returns (Q, out_dim) numpy in query order.
 
-    Selection is always exact: ``exact_topk`` is accepted for the JAX
-    package's signature, and ``recall_target`` (its ``approx_min_k``
-    mode) raises ``NotImplementedError``."""
-    del exact_topk                       # every selection here is exact
-    if recall_target is not None:
-        raise NotImplementedError(
-            "approx_min_k selection (recall_target) has no PyTorch "
-            "counterpart and is not ported; the exact selection serves")
+    Selection is always exact: ``exact_topk`` and ``recall_target`` (the
+    JAX package's ``approx_min_k`` mode) are accepted for its signature."""
+    del exact_topk, recall_target        # every selection here is exact
     dev = resolve_device(device)
     pts = np.asarray(points, np.float32)
     vals = np.asarray(values, np.float32)

@@ -295,13 +295,6 @@ def csr_candidate_panel(cells: CellList, q_tile: torch.Tensor, rings: int):
     return cand, torch.where(cand == n_sent, _BIG, d2)
 
 
-def _exact_only(exact_topk: bool, recall_target) -> None:
-    if not exact_topk or recall_target is not None:
-        raise NotImplementedError(
-            "approximate selection (approx_min_k, recall_target) has no "
-            "PyTorch counterpart and is not ported; exact_topk=True serves")
-
-
 def _select_slot_order(d2: torch.Tensor, kk: int):
     """The kk smallest of each row of ``d2``, ascending, ties in slot order
     — what ``lax.top_k`` gives, and ``approx_min_k`` off the TPU, where it
@@ -312,7 +305,8 @@ def _select_slot_order(d2: torch.Tensor, kk: int):
 
 
 def celllist_csr_tile_fn(cells: CellList, k: int, rings: int = 1,
-                         exact_topk: bool = True, recall_target=None):
+                         exact_topk: bool = True,
+                         recall_target: float = 0.99):
     """Per-tile cell-list kNN through the CSR layout: ``fn(q_tile) ->
     (sq_dists, idx_sorted)``, both (T, k), ascending, where
     ``idx_sorted`` indexes the cell-sorted arrays (``points_sorted``, or
@@ -322,8 +316,9 @@ def celllist_csr_tile_fn(cells: CellList, k: int, rings: int = 1,
     panel holds fewer than k slots, point at the sentinel row
     ``cells.n_points`` with d² = ``_BIG``. Exact whenever the k-th
     neighbour lies within ``rings·cell_size`` of the query; beyond it, the
-    k nearest of the neighbourhood. Only exact selection is ported."""
-    _exact_only(exact_topk, recall_target)
+    k nearest of the neighbourhood. Selection is exact: ``exact_topk=False``
+    (``approx_min_k`` at ``recall_target``) is served by the same sort."""
+    del exact_topk, recall_target        # every selection here is exact
     n_offsets = (2 * rings + 1) ** 3
     kk = min(k, n_offsets * cells.cap)
     n_sent = cells.n_points
@@ -342,7 +337,8 @@ def celllist_csr_tile_fn(cells: CellList, k: int, rings: int = 1,
 
 
 def celllist_tile_fn(cells: CellList, k: int, rings: int = 1,
-                     exact_topk: bool = True, recall_target=None):
+                     exact_topk: bool = False,
+                     recall_target: float = 0.99):
     """Per-tile cell-list kNN closure: ``fn(q_tile) -> (sq_dists, idx)``
     with original point ids, the JAX package's search over its dense
     per-cell ``table``. That table holds, cell by cell, the same
@@ -355,8 +351,10 @@ def celllist_tile_fn(cells: CellList, k: int, rings: int = 1,
     selected, which happens when the neighbourhood holds fewer than k
     points; when the panel itself has fewer than k slots, the missing ones
     carry id -1. Callers clamp these ids into range as the JAX package's
-    gathers do. Only exact selection is ported."""
-    _exact_only(exact_topk, recall_target)
+    gathers do. Selection is exact, as for :func:`celllist_csr_tile_fn`:
+    off the TPU the JAX package's ``approx_min_k`` gives the same
+    distances, with its own order among ties."""
+    del exact_topk, recall_target        # every selection here is exact
     n = cells.n_points
     kk = min(k, (2 * rings + 1) ** 3 * cells.cap)
     sorted_fn = celllist_csr_tile_fn(cells, kk, rings)

@@ -192,7 +192,7 @@ def _slab_repair(mesh: Mesh, field, den, survey, skip_l, cells_g, cells_l,
 def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
                              method: str = "sibson", k: int = 50,
                              power: float = 2.0, block=(8, 8, 16),
-                             recall_target: Optional[float] = None,
+                             recall_target: float = 0.9,
                              margin_factor: float = 1.45,
                              tau_mode: str = "bisect", skip_mask=None,
                              backend: str = "auto"):
@@ -215,9 +215,8 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
     device (the JAX package takes it on a TPU only) — or 'xla', the
     streaming path per slab with the weight sums carried to the global
     ladder. The panel widths are planned once over the whole padded grid,
-    so every rank's panels have one width. ``tau_mode='approx'`` and
-    ``recall_target`` (``approx_min_k``) raise ``NotImplementedError``, as
-    on one device.
+    so every rank's panels have one width. ``tau_mode='approx'`` takes the
+    exact selection, which meets any ``recall_target``, as on one device.
 
     ``sharded_grid_interpolate.last_stats`` records this rank's last call:
     its store's bytes (``store_bytes``) against the whole store's
@@ -238,10 +237,7 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         weight_fn = _sibson_panel_weights()
     else:
         raise ValueError(f"sharded grid kernel supports idw/sibson, got {method!r}")
-    if recall_target is not None:
-        raise NotImplementedError(
-            "approx_min_k selection (recall_target) has no PyTorch "
-            "counterpart and is not ported")
+    del recall_target                    # every selection here is exact
     tau_mode = _tau_mode(tau_mode, False)
     if backend not in ("auto", "fused", "xla"):
         raise ValueError(f"unknown backend {backend!r}")

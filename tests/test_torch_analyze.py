@@ -295,8 +295,13 @@ def test_cli_recipe_writes_the_jax_files(tmp_path, capsys):
     assert capsys.readouterr().out.rstrip().endswith("Done.")
 
 
-def test_daemon_flag_runs_inline(tmp_path, capsys):
+def test_daemon_flag_runs_inline(tmp_path, capsys, monkeypatch):
+    """``-D`` with a daemon that cannot start: the stderr line, then the
+    inline run (``tests/test_daemon.py``'s fallback)."""
+    from ptv_interpolation_tpu_torch import daemon
     from ptv_interpolation_tpu_torch.cli import analyze_flow
+    monkeypatch.setenv("PTV_DAEMON_DIR", str(tmp_path / "nosock"))
+    monkeypatch.setattr(daemon, "_spawn", lambda *a, **k: False)
     u, v, w, x, y, z, fluid = _field()
     from ptv_interpolation_tpu_torch.io import save_field_npz
     path = str(tmp_path / "f.npz")
@@ -326,6 +331,7 @@ NEW_MODULES = (
     "ptv_interpolation_tpu_torch.cli",
     "ptv_interpolation_tpu_torch.cli.main",
     "ptv_interpolation_tpu_torch.cli.analyze_flow",
+    "ptv_interpolation_tpu_torch.daemon",
 )
 
 

@@ -180,16 +180,37 @@ def test_scatter_knn_apply_exact_matches_jax(k):
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
 
 
-def test_unported_options_raise():
-    cloud, _ = _make_cloud(n=500)
-    speed = np.ones((500, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        scatter_knn_apply(cloud.points, speed, cloud.points, 5,
-                          tf._mad_consume(4, 3.0), out_dim=2,
-                          recall_target=0.95, device="cpu")
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        tf.knn_mad_mask_scatter(cloud.points, cloud.values, k=4,
-                                recall_target=0.95, device="cpu")
+@pytest.mark.parametrize("recall_target", [0.95, 0.5])
+def test_recall_target_matches_jax(recall_target):
+    """``recall_target`` (the JAX package's ``approx_min_k``, an exact sort
+    on the CPU) served by exact selection: the scatter-block kNN's keep
+    flags identical to JAX's and its k-th distances within 1e-6, bit for
+    bit its own ``exact_topk=True``; ``knn_mad_mask_scatter`` takes the
+    selection path with the same decisions and radius as JAX's."""
+    cloud, _ = _make_cloud(n=1500)
+    pts = cloud.points
+    speed = np.sqrt((cloud.values ** 2).sum(axis=-1, keepdims=True))
+    queries = pts[::5]
+    want = jax_scatter_knn_apply(pts, speed, queries, 9,
+                                 jf._mad_consume(8, 3.0), out_dim=2,
+                                 recall_target=recall_target)
+    got = scatter_knn_apply(pts, speed, queries, 9, tf._mad_consume(8, 3.0),
+                            out_dim=2, recall_target=recall_target,
+                            device="cpu")
+    exact = scatter_knn_apply(pts, speed, queries, 9,
+                              tf._mad_consume(8, 3.0), out_dim=2,
+                              exact_topk=True, device="cpu")
+    np.testing.assert_array_equal(got, exact)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
+    jk, jr = jf.knn_mad_mask_scatter(pts, cloud.values, k=8,
+                                     recall_target=recall_target)
+    tk, tr = tf.knn_mad_mask_scatter(pts, cloud.values, k=8,
+                                     recall_target=recall_target,
+                                     device="cpu")
+    assert tf.knn_mad_mask_scatter.last_branch == ("selection", len(pts))
+    np.testing.assert_array_equal(tk, jk)
+    assert abs(tr - jr) <= 1e-6 * abs(jr)
 
 
 def _clustered_cloud():

@@ -61,10 +61,14 @@ def _weights(mode, power=2.0):
     ("corner_slab", "idw", "exact"),
     ("uniform", "sibson", "exact"),
     ("ragged", "idw", "bisect"),
+    ("corner_slab", "sibson", "approx"),
+    ("ragged", "idw", "approx"),
 ])
 def test_grid_block_weighted_sum_matches_jax(cloud, mode, tau):
     """The streaming path over every block: ``den == 0`` at the same
-    nodes, fields and weight sums within f32 tolerance."""
+    nodes, fields and weight sums within f32 tolerance. ``'approx'``
+    holds the port's exact selection against JAX's ``approx_min_k`` (an
+    exact sort on the CPU), and is bit for bit the port's ``'exact'``."""
     s = _setup(getattr(fx, cloud)())
     jfn, tfn = _weights(mode)
     want, want_den = jgk._grid_block_weighted_sum(
@@ -81,7 +85,7 @@ def test_grid_block_weighted_sum_matches_jax(cloud, mode, tau):
                                atol=ATOL)
     np.testing.assert_allclose(got_den.numpy(), want_den, rtol=RTOL,
                                atol=ATOL)
-    if tau == "exact":                  # exact_tau=True is the same mode
+    if tau != "bisect":       # exact_tau=True and 'approx': the same mode
         again = tgk._grid_block_weighted_sum(
             s["tcells"], s["tvs"], s["axes"], s["margin"], K, BLOCK,
             s["grid"].shape, s["mc"], s["row_len"], tfn, exact_tau=True)
@@ -221,6 +225,66 @@ def test_celllist_repair_eval_csr_matches_jax(mode):
     np.testing.assert_array_equal(good.numpy(), want_good)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_celllist_repair_eval_table_form_matches_jax(mode, monkeypatch):
+    """The cell-list stage's table form, taken when no cell-sorted values
+    are given: ``_celllist_repair_eval`` against the JAX package's on
+    queries inside and beyond the guard radius (``good`` identical,
+    values within f32 tolerance), then ``repair_empty_nodes(values_sorted=
+    None)`` on cells that carry a table — the same nodes served by the
+    cell-list stage and by brute force, and the same field."""
+    s = _setup(fx.corner_slab())
+    cell_size = 1.0 / float(s["cells"].inv_host)
+    jcells = jax_build_cell_list(s["pts"], cell_size=cell_size)
+    assert jcells.table.shape[0] > 1
+    tcells = fx.carry_cells(jcells)
+    rings = int(np.ceil(1.6 * float(s["margin"]) / cell_size))
+    guard = rings * cell_size
+    rng = np.random.default_rng(3)
+    q = rng.uniform(-1, 25, size=(256, 3)).astype(np.float32)
+    want, want_good = jgk._celllist_repair_eval(
+        jcells, s["vals"], q, K, rings, mode, 2.0, jnp.float32(guard),
+        query_tile=128)
+    got, good = tgk._celllist_repair_eval(
+        tcells, _torch(s["vals"]), _torch(q), K, rings, mode, 2.0, guard,
+        query_tile=128)
+    want_good = np.asarray(want_good)
+    assert want_good.any() and not want_good.all()
+    np.testing.assert_array_equal(good.numpy(), want_good)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+    jfn, _ = _weights(mode)
+    field, den = jgk._grid_block_weighted_sum(
+        s["cells"], s["vs"], s["axes"], jnp.float32(s["margin"]), K, BLOCK,
+        s["grid"].shape, s["mc"], s["row_len"], jfn, 0.9, 8, False,
+        "bisect")
+    served = []
+    table_eval = jgk._celllist_repair_eval
+
+    def count_table_eval(*a, **kw):
+        vals, ok = table_eval(*a, **kw)
+        served.append(int(np.asarray(ok)[:len(np.flatnonzero(
+            np.asarray(den) == 0))].sum()))
+        return vals, ok
+
+    monkeypatch.setattr(jgk, "_celllist_repair_eval", count_table_eval)
+    want = jgk.repair_empty_nodes(
+        field, den, s["pts"], s["vals"], s["grid"], K, mode, 2.0,
+        cells=jcells, margin=s["margin"], block=BLOCK)
+    got = tgk.repair_empty_nodes(
+        _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
+        s["tgrid"], K, mode, 2.0, cells=tcells, margin=s["margin"],
+        block=BLOCK)
+    n_unc = int((np.asarray(den) == 0).sum())
+    assert len(served) == 1 and served[0] > 100
+    assert tgk.repair_empty_nodes.last_stages == {
+        "uncovered": n_unc, "celllist": served[0],
+        "bruteforce": n_unc - served[0]}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
 
 
 def _repair_inputs(s, uncovered):
@@ -390,6 +454,40 @@ def test_grid_knn_apply_positions_match_jax(gather_problem):
                              device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=2e-5)
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        tgk.grid_knn_apply(pts, vals, create_grid(bounds, n), 8,
-                           consume(torch), 4, device="cpu")
+
+
+def test_grid_knn_apply_approx_matches_jax(gather_problem):
+    """``exact_topk=False``: the JAX package's ``approx_min_k`` at
+    ``recall_target``, an exact sort on the CPU, against the port's exact
+    gather. On each side every node's k squared distances are bit for bit
+    those of ``exact_topk=True``; across the two, they and the mean
+    neighbour offset (order-free over the k-set) are at the tolerance of
+    the exact route (XLA rounds the d² sum in its own order)."""
+    pts, vals, bounds, n = gather_problem
+
+    def consume(xp):
+        def fn(sq, n_pos, n_val, ok, q):
+            if xp is jnp:
+                okf = ok.astype(jnp.float32)[..., None]
+                mean_pos = (n_pos * okf).sum(axis=1) / okf.sum(axis=1)
+                return jnp.concatenate([sq, mean_pos - q], axis=1)
+            okf = ok.to(torch.float32)[..., None]
+            mean_pos = (n_pos * okf).sum(dim=1) / okf.sum(dim=1)
+            return torch.cat([sq, mean_pos - q], dim=1)
+        return fn
+
+    def run(**kw):
+        want = np.asarray(jgk.grid_knn_apply(
+            pts, vals, jax_create_grid(bounds, n), 8, consume(jnp), 11,
+            **kw))
+        got = tgk.grid_knn_apply(pts, vals, create_grid(bounds, n), 8,
+                                 consume(torch), 11, device="cpu",
+                                 **kw).numpy()
+        return want, got
+
+    want_exact, got_exact = run(exact_topk=True)
+    for rt in (0.99, 0.5):
+        want, got = run(exact_topk=False, recall_target=rt)
+        np.testing.assert_array_equal(want[..., :8], want_exact[..., :8])
+        np.testing.assert_array_equal(got, got_exact)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=2e-5)

@@ -137,9 +137,9 @@ def test_grid_slice_after_refinement_matches_bruteforce(mode):
 
 
 def test_grid_entry_points_refuse_unported_routes():
-    """What stays refused: approximate selection, a custom weight_fn on
-    the fused kernel and the fused panel guard. The exact top-k gather
-    route and the 'xla' and 'pallas' backends run."""
+    """What stays refused: approximate selection on the fused kernel, a
+    custom weight_fn there and the fused panel guard. The exact top-k
+    gather route and the 'xla' and 'pallas' backends run."""
     pts, vals, bounds, n = fx.uniform(n_pts=1000, n=12)
     grid = create_grid(bounds, n)
     for entry in (tkw.sibson_grid_interpolate, tkw.idw_grid_interpolate):
@@ -148,12 +148,9 @@ def test_grid_entry_points_refuse_unported_routes():
             out = entry(pts, vals, grid, k=8, device="cpu", **kw)
             assert out.shape == (n, n, n, 3), kw
             assert bool(torch.isfinite(out).all()), kw
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
+    with pytest.raises(ValueError, match="tau_mode='bisect' only"):
         tkw.sibson_grid_interpolate(pts, vals, grid, k=8, tau_mode="approx",
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        tkw.idw_grid_interpolate(pts, vals, grid, k=8, tau_mode="approx",
-                                 backend="xla", device="cpu")
+                                    backend="fused", device="cpu")
     with pytest.raises(ValueError, match="custom weight_fn"):
         tgk.grid_weighted_interpolate(pts, vals, grid, 8,
                                       lambda d, m, s: 1.0 / (d + 1e-6),
@@ -161,6 +158,29 @@ def test_grid_entry_points_refuse_unported_routes():
     with pytest.raises(tfg.FusedCapacityError):
         tfg.fused_grid_weighted_interpolate(pts, vals, grid, 8, max_panel=1,
                                             device="cpu")
+
+
+@pytest.mark.parametrize("mode,backend", [("sibson", "auto"),
+                                          ("idw", "xla")])
+def test_approx_tau_mode_matches_jax(mode, backend):
+    """``tau_mode='approx'`` (with ``recall_target``) against the JAX
+    package's ``approx_min_k`` selection on the CPU, an exact sort there:
+    the port serves it by exact selection, bit for bit its own
+    ``tau_mode='exact'``, and within the slice tolerance of JAX's."""
+    pts, vals, bounds, n = fx.void_region()
+    entry = (tkw.sibson_grid_interpolate, tkw.idw_grid_interpolate)[
+        mode == "idw"]
+    jentry = (jkw.sibson_grid_interpolate, jkw.idw_grid_interpolate)[
+        mode == "idw"]
+    kw = dict(k=8, block=(2, 4, 8), backend=backend)
+    want = np.asarray(jentry(pts, vals, jax_create_grid(bounds, n),
+                             tau_mode="approx", recall_target=0.9, **kw))
+    grid = create_grid(bounds, n)
+    got = entry(pts, vals, grid, tau_mode="approx", recall_target=0.9,
+                device="cpu", **kw)
+    exact = entry(pts, vals, grid, tau_mode="exact", device="cpu", **kw)
+    assert torch.equal(got, exact)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 def test_cuda_device_raises_without_a_gpu():

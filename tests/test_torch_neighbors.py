@@ -210,13 +210,32 @@ def test_knn_celllist_and_dispatch_match_jax():
         tnb.knn(pts, q, k, method="kdtree", device="cpu")
 
 
-def test_approximate_selection_raises():
-    pts, q, k, rings, jc, tc = _search_inputs("uniform-k8")
-    for kw in (dict(exact_topk=False), dict(recall_target=0.95)):
-        with pytest.raises(NotImplementedError, match="approx_min_k"):
-            tnb.celllist_tile_fn(tc, k, **kw)
-        with pytest.raises(NotImplementedError, match="approx_min_k"):
-            tnb.celllist_csr_tile_fn(tc, k, **kw)
+@pytest.mark.parametrize("case", ["uniform-k8", "coincident-k12",
+                                  "short_panel-k80"])
+def test_approximate_selection_matches_jax(case):
+    """``exact_topk=False`` and ``recall_target`` on both searches, served
+    by exact selection: against the JAX package's ``approx_min_k`` at the
+    same arguments, d² bit for bit and the ids equal up to the order of
+    tied distances (the sorted-index form through ``cells.order``)."""
+    import jax
+    pts, q, k, rings, jc, tc = _search_inputs(case)
+    tq = torch.from_numpy(q)
+    order = np.concatenate([np.asarray(jc.order), [len(pts)]])
+    for kw in (dict(exact_topk=False), dict(exact_topk=False,
+                                            recall_target=0.5),
+               dict(recall_target=0.95)):
+        want = tuple(np.asarray(a) for a in jax.jit(
+            jnb.celllist_tile_fn(jc, k, rings, **kw))(q))
+        got = tuple(a.numpy() for a in
+                    tnb.celllist_tile_fn(tc, k, rings, **kw)(tq))
+        _assert_same_up_to_ties(tc, q, rings, got, want)
+        want_sq, want_sorted = (np.asarray(a) for a in jax.jit(
+            jnb.celllist_csr_tile_fn(jc, k, rings, **kw))(q))
+        got_sq, got_sorted = tnb.celllist_csr_tile_fn(tc, k, rings,
+                                                      **kw)(tq)
+        _assert_same_up_to_ties(tc, q, rings,
+                                (got_sq.numpy(), order[got_sorted.numpy()]),
+                                (want_sq, order[want_sorted]))
 
 
 def test_map_query_tiles_progress_matches_jax():

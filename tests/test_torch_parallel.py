@@ -288,16 +288,30 @@ def test_single_process_mesh_and_shard_fields():
 
 @pytest.mark.parametrize("kw", [dict(tau_mode="approx"),
                                 dict(recall_target=0.9)])
-def test_sharded_grid_approx_selection_raises(kw):
-    """``approx_min_k`` selection has no counterpart: as on one device,
-    ``tau_mode='approx'`` and ``recall_target`` raise."""
+def test_sharded_grid_approx_selection_matches_jax(kw):
+    """``tau_mode='approx'`` and ``recall_target`` on a one-rank mesh,
+    served by exact selection as on one device: against JAX's sharded
+    path at the same arguments (``approx_min_k``, an exact sort on the
+    CPU) at the route tolerance of the one-device tests, and bit for bit
+    the port's ``tau_mode='exact'`` (resp. its default)."""
     from ptv_interpolation_tpu_torch.parallel import make_mesh
     from ptv_interpolation_tpu_torch.parallel.sharding import (
         sharded_grid_interpolate)
     points, values = workers.problem()[:2]
-    with pytest.raises(NotImplementedError):
-        sharded_grid_interpolate(points, values, create_grid(
-            ((0, 17),) * 3, 16), make_mesh(device="cpu"), k=12, **kw)
+    bounds = ((0, 17),) * 3
+    mesh = make_mesh(device="cpu")
+    got = sharded_grid_interpolate(points, values, create_grid(bounds, 16),
+                                   mesh, k=12, block=BLOCK, **kw)
+    same = {k: v for k, v in kw.items() if k != "recall_target"}
+    if same:
+        same["tau_mode"] = "exact"
+    base = sharded_grid_interpolate(points, values, create_grid(bounds, 16),
+                                    mesh, k=12, block=BLOCK, **same)
+    assert torch.equal(got, base)
+    want = np.asarray(jax_sharded_grid(
+        points, values, jax_create_grid(bounds, 16), jax_make_mesh(1),
+        method="sibson", k=12, block=BLOCK, **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("n", SIZES)
