@@ -299,8 +299,9 @@ def _check_tau2(torch, fg, args, what):
     the nodes that overflowed their shortlist and the node count."""
     m2, cand, qx, qy, qz, block, sz, k, V, C = args[:10]
     tau2 = torch.empty(qx.shape[0], qx.shape[2], device=cand.device)
-    fg._fused_eval(*args, tau2=tau2)
-    overflow = int(fg._fused_eval.last_overflow)
+    with capture() as rec:
+        fg._fused_eval(*args, tau2=tau2)
+    overflow = rec.counters()["kernel1.overflow"]
     want = fg._fused_tau2_plain(m2, cand, qx, qy, qz, block, sz, k, C)
     if not torch.equal(tau2, want):
         n = int((tau2 != want).sum())
@@ -403,36 +404,38 @@ def phase_main_path(torch, pts, vals, grid, k):
     out, first = run()
     log(f"  warm-up run: {first:.4f} s")
 
-    # split the launch count between the main pass and repair
-    counts = {"repair": 0}
-    fused_repair = fg.fused_repair
-
-    def counted_repair(*a, **kwa):
-        before = fg._fused_eval.launches
-        try:
-            return fused_repair(*a, **kwa)
-        finally:
-            counts["repair"] += fg._fused_eval.launches - before
-
+    # split the launch count between the main pass and repair: the spans
+    # ptv.grid.kernel1 inside and outside ptv.grid.repair
     torch.cuda.reset_peak_memory_stats()
-    fg._fused_eval.launches = 0
-    fg.fused_repair = counted_repair
-    try:
+    with capture() as rec:
         walls = []
         for i in range(3):
             out, wall = run()
             walls.append(wall)
             log(f"  run {i + 1}: {wall:.4f} s")
-    finally:
-        fg.fused_repair = fused_repair
-    launches = fg._fused_eval.launches
+    spans = rec.spans()
+    parent = {r["id"]: r["parent"] for r in spans}
+    repair_ids = {r["id"] for r in spans if r["name"] == "ptv.grid.repair"}
+
+    def in_repair(r):
+        while r is not None and r not in repair_ids:
+            r = parent.get(r)
+        return r is not None
+
+    launched = [r for r in spans if r["name"] == "ptv.grid.kernel1"
+                and r["counters"].get("kernel1.launches")]
+    counts = {"repair": sum(in_repair(r["id"]) for r in launched)}
+    launches = len(launched)
     main_launches = launches - counts["repair"]
+    ladder = {k: v for k, v in rec.counters().items()
+              if k.startswith("repair.")}
     peak = torch.cuda.max_memory_allocated()
     wall = float(np.median(walls))
     log(f"  median wall {wall:.4f} s; peak device memory "
         f"{peak / 2**30:.3f} GiB; kernel launches: main pass "
         f"{main_launches}, repair {counts['repair']} (3 runs); repair "
-        f"ladder {gk.repair_empty_nodes.last_stages}")
+        f"ladder over the 3 runs {ladder}; host syncs "
+        f"{rec.counters().get('host_syncs', 0) / 3:g} per run")
     if main_launches <= 0 or counts["repair"] <= 0:
         raise AssertionError("the main path did not launch the kernel in "
                              "both the main pass and repair")
@@ -584,10 +587,16 @@ def _filter_input(fluid, pts, vals):
     return PointCloud(pts[rows], vals[rows]), rows
 
 
+def capture():
+    """The port's span and counter record for a block
+    (``ptv_interpolation_tpu_torch.utils.capture``)."""
+    from ptv_interpolation_tpu_torch.utils import capture as port_capture
+    return port_capture()
+
+
 def _captured(module, name, fn):
     """The positional arguments of the first call that ``fn()`` makes to
-    the kernel wrapper ``module.<name>``. The wrapper counts its launches
-    on its own function object, so the counts are carried across."""
+    the kernel wrapper ``module.<name>``."""
     seen = []
     orig = getattr(module, name)
 
@@ -595,12 +604,10 @@ def _captured(module, name, fn):
         seen.append(a)
         return orig(*a)
 
-    grab.__dict__.update(orig.__dict__)
     setattr(module, name, grab)
     try:
         fn()
     finally:
-        orig.__dict__.update(grab.__dict__)
         setattr(module, name, orig)
     if not seen:
         raise AssertionError(f"{name} was not called")
@@ -620,7 +627,7 @@ def _captured_mad_eval(cloud, k):
     return args
 
 
-def _compare_mad(torch, got, want, what):
+def _compare_mad(torch, got, want, overflow, what):
     if not torch.equal(got[:, 0], want[:, 0]):
         n = int((got[:, 0] != want[:, 0]).sum())
         raise AssertionError(f"{what}: keep|covered differs at {n} slots")
@@ -634,8 +641,6 @@ def _compare_mad(torch, got, want, what):
     w = torch.where(fin[:, None], want[:, 1:4], 0.0)
     err = float((g - w).abs().max())
     n_unc = int(((got[:, 0] < 2) & fin).sum())
-    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
-    overflow = int(fm._mad_eval.last_overflow)
     log(f"  {what}: keep|covered identical ({n_unc} real slots uncovered), "
         f"rows 1-3 bit-equal; {overflow} of {int(fin.sum())} real queries "
         f"overflowed their shortlist")
@@ -675,15 +680,22 @@ def phase_mad_kernel(torch, fluid, pts, vals, thr_idx, mad_idx):
         sub_cand = cand.view(4, nb, C)[:, ids].reshape(4, -1).contiguous()
         sub_q = [a[ids].contiguous() for a in (qx, qy, qz, qs)]
         args = (m2, sub_cand, *sub_q, kk, thr, Bt, C)
-        got, want = fm._mad_eval(*args), fm._mad_eval_plain(*args)
+        with capture() as rec:
+            got = fm._mad_eval(*args)
+        want = fm._mad_eval_plain(*args)
         torch.cuda.synchronize()
-        errs.append(_compare_mad(torch, got, want, f"k={k}, {len(ids)} blocks "
+        errs.append(_compare_mad(torch, got, want,
+                                 rec.counters()["kernel2.overflow"],
+                                 f"k={k}, {len(ids)} blocks "
                                  f"with the 8 corners and "
                                  f"{len(outliers)} planted outliers"))
         full = (m2, cand, qx, qy, qz, qs, kk, thr, Bt, C)
-        got, want = fm._mad_eval(*full), fm._mad_eval_plain(*full)
+        with capture() as rec:
+            got = fm._mad_eval(*full)
+        want = fm._mad_eval_plain(*full)
         torch.cuda.synchronize()
         errs.append(_compare_mad(torch, got, want,
+                                 rec.counters()["kernel2.overflow"],
                                  f"k={k}, full production panel"))
         if k == 30:
             full30 = full
@@ -716,9 +728,6 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
                                                 load_velocity_field,
                                                 save_ptv_data)
     from ptv_interpolation_tpu_torch.io.tiff import write_tiff
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
-    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
-    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
     from ptv_interpolation_tpu_torch.utils import StageTimings
     log("== 6. pipeline: run_pipeline on cuda at the production shape")
     config = pipeline_config()
@@ -759,7 +768,6 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
         seen["cloud"] = (np.asarray(points), np.asarray(values))
         return interp(points, values, grid, **kw)
 
-    grab_scatter.last_branch = None
     filtering.knn_mad_mask_scatter = grab_scatter
     pipeline.interpolate_field = grab_interp
     walls, launches, all_stages = [], [], []
@@ -767,16 +775,18 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
     try:
         for i in range(3):
             timings = StageTimings()
-            fm._mad_eval.launches = 0
-            fg._fused_eval.launches = 0
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = pipeline.run_pipeline(config, cloud=PointCloud(pts, vals),
-                                        mask_raw=fluid, timings=timings,
-                                        device="cuda")
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            launches.append((fm._mad_eval.launches, fg._fused_eval.launches))
+            with capture() as rec:
+                t0 = time.perf_counter()
+                res = pipeline.run_pipeline(config,
+                                            cloud=PointCloud(pts, vals),
+                                            mask_raw=fluid, timings=timings,
+                                            device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = rec.counters()
+            launches.append((counts.get("kernel2.launches", 0),
+                             counts.get("kernel1.launches", 0)))
             all_stages.append(dict(timings.stages))
             log(f"  run {i + 1}: {walls[-1]:.4f} s; launches: fused_mad "
                 f"{launches[-1][0]}, fused_grid_knn {launches[-1][1]}; "
@@ -784,7 +794,10 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
             if min(launches[-1]) <= 0:
                 raise AssertionError("the pipeline run did not launch both "
                                      "kernels")
-        branch = grab_scatter.last_branch
+        branch = next(k.rsplit(".", 1)[1] for k in counts
+                      if k.startswith("filter.branch."))
+        branch = (branch, counts["filter.uncovered"])
+        ladder = {k: v for k, v in counts.items() if k.startswith("repair.")}
     finally:
         filtering.knn_mad_mask_scatter = scatter
         pipeline.interpolate_field = interp
@@ -796,8 +809,7 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
         + f"); peak device memory {peak / 2**30:.3f} GiB")
     log(f"  filter branch for the uncovered points: {branch[0]}, "
         f"{branch[1]} points")
-    log(f"  repair ladder, nodes served by stage: "
-        f"{gk.repair_empty_nodes.last_stages}")
+    log(f"  repair ladder, nodes served by stage: {ladder}")
 
     # decisions against an independent f64 reference on the filter's input
     cloud, rows = _filter_input(fluid, pts, vals)
@@ -927,12 +939,14 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
     errs = []
     for mode, power in (("sibson", 2.0), ("idw", 2.0), ("idw", 3.0)):
         args = sub + (mode, power, PALLAS_ITERS)
-        got, want = pg._pallas_eval(*args), pg._pallas_eval_plain(*args)
+        with capture() as rec:
+            got = pg._pallas_eval(*args)
+        want = pg._pallas_eval_plain(*args)
         torch.cuda.synchronize()
         errs.append(_compare_pallas(
             torch, got, want, f"{mode} p={power:g}, {len(ids)} blocks incl. "
             f"corners/edges/{len(outside)} outside the cell grid"))
-        _log_overflow(pg, got, f"{mode} p={power:g} subset")
+        _log_overflow(rec, got, f"{mode} p={power:g} subset")
 
     # one fixed slice of blocks for both versions, then every block
     all_ids = torch.arange(n_blocks, dtype=torch.int32, device=dev)
@@ -941,11 +955,13 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
     args = _pallas_slice(full)
     ms = _cuda_ms(torch, lambda: pg._pallas_eval(*args), reps=5)
     plain_ms = _cuda_ms(torch, lambda: pg._pallas_eval_plain(*args), reps=1)
-    got, want = pg._pallas_eval(*args), pg._pallas_eval_plain(*args)
+    with capture() as rec:
+        got = pg._pallas_eval(*args)
+    want = pg._pallas_eval_plain(*args)
     torch.cuda.synchronize()
     errs.append(_compare_pallas(torch, got, want,
                                 f"sibson, slice of {SLICE_BLOCKS} blocks"))
-    _log_overflow(pg, got, f"slice of {SLICE_BLOCKS} blocks")
+    _log_overflow(rec, got, f"slice of {SLICE_BLOCKS} blocks")
     # the slice's work: 128 nodes against every real point of its windows
     # (each d² can move the bisection's upper bound, the farthest one);
     # the store columns the windows cover (x, y, z, u, v, w), the starts
@@ -961,14 +977,16 @@ def phase_pallas_kernel(torch, pts, vals, grid, k):
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     full_ms = _cuda_ms(torch, lambda: pg._pallas_eval(*full), reps=2)
     log(f"  every block ({n_blocks}), sibson: kernel {full_ms:.3f} ms")
-    _log_overflow(pg, pg._pallas_eval(*full), f"every block ({n_blocks})")
+    with capture() as rec:
+        got = pg._pallas_eval(*full)
+    _log_overflow(rec, got, f"every block ({n_blocks})")
     return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
-def _log_overflow(pg, out, what):
+def _log_overflow(rec, out, what):
     """Kernel 3's count of nodes that ran over the whole panel in the launch
-    that gave ``out``."""
-    log(f"  {what}: {int(pg._pallas_eval.last_overflow)} of "
+    that gave ``out``, the one launch of the capture ``rec``."""
+    log(f"  {what}: {rec.counters()['kernel3.overflow']} of "
         f"{out.shape[0] * out.shape[1]} nodes overflowed their shortlist")
 
 
@@ -1003,13 +1021,13 @@ def phase_pallas_path(torch, pts, vals, grid, k):
     out, first = run()
     log(f"  warm-up run: {first:.4f} s")
     torch.cuda.reset_peak_memory_stats()
-    pg._pallas_eval.launches = 0
     walls = []
-    for i in range(3):
-        out, wall = run()
-        walls.append(wall)
-        log(f"  run {i + 1}: {wall:.4f} s")
-    launches = pg._pallas_eval.launches
+    with capture() as rec:
+        for i in range(3):
+            out, wall = run()
+            walls.append(wall)
+            log(f"  run {i + 1}: {wall:.4f} s")
+    launches = rec.counters().get("kernel3.launches", 0)
     peak = torch.cuda.max_memory_allocated()
     log(f"  median wall {float(np.median(walls)):.4f} s; peak device memory "
         f"{peak / 2**30:.3f} GiB; kernel launches {launches} (3 runs)")
@@ -1055,27 +1073,26 @@ SMALL_N, SMALL_POINTS = 128, 125_000
 def phase_other_routes(torch, k):
     from ptv_interpolation_tpu_torch.interpolate import (
         sibson_grid_interpolate)
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
-    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
     log(f"== 9. streaming and exact top-k routes, {SMALL_POINTS} points → "
         f"{SMALL_N}³")
     pts, vals, grid = uniform_problem()
     for name, kw in (("backend='xla'", dict(backend="xla")),
                      ("exact_topk=True", dict(exact_topk=True))):
-        gk.repair_empty_nodes.last_stages = None
-        launches = fg._fused_eval.launches
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sibson_grid_interpolate(pts, vals, grid, k=k, device="cuda",
-                                      **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with capture() as rec:
+            t0 = time.perf_counter()
+            out = sibson_grid_interpolate(pts, vals, grid, k=k,
+                                          device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = rec.counters()
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{name}: non-finite values")
         l2 = _interior_l2(torch, out, pts, vals, grid)
         log(f"  {name}: {wall:.4f} s (first call), repair ladder "
-            f"{gk.repair_empty_nodes.last_stages}, grid-kernel launches "
-            f"{fg._fused_eval.launches - launches}; relative L2 vs f64 "
+            f"{ {k: v for k, v in counts.items() if 'repair.' in k} }, "
+            f"grid-kernel launches {counts.get('kernel1.launches', 0)}; "
+            f"relative L2 vs f64 "
             f"scipy on 20000 interior nodes {l2:.3e} (limit "
             f"{L2_LIMIT:.0e})")
         if not l2 <= L2_LIMIT:
@@ -1280,8 +1297,6 @@ def _cleaning_breakdown(torch, u, v, w, mask, spacing, dev):
 def phase_cleaning(torch, fluid, pts, vals, uncleaned, save_dir):
     from ptv_interpolation_tpu_torch import physics, pipeline
     from ptv_interpolation_tpu_torch.io import PointCloud
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
-    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
     from ptv_interpolation_tpu_torch.utils import StageTimings
     log("== 10. production configuration: run_pipeline with variational "
         "cleaning on cuda")
@@ -1344,11 +1359,12 @@ def phase_cleaning(torch, fluid, pts, vals, uncleaned, save_dir):
         torch.cuda.reset_peak_memory_stats()
         for i in range(3):
             timings = StageTimings()
-            fm._mad_eval.launches = 0
-            fg._fused_eval.launches = 0
-            res, wall = run()
+            with capture() as rec:
+                res, wall = run()
             walls.append(wall)
-            launches.append((fm._mad_eval.launches, fg._fused_eval.launches))
+            counts = rec.counters()
+            launches.append((counts.get("kernel2.launches", 0),
+                             counts.get("kernel1.launches", 0)))
             all_stages.append(dict(timings.stages))
             log(f"  run {i + 1}: {wall:.4f} s; launches: fused_mad "
                 f"{launches[-1][0]}, fused_grid_knn {launches[-1][1]}; "
@@ -1864,8 +1880,6 @@ def phase_cli(torch, fluid, pts, vals, tmp, dev="cuda"):
     from ptv_interpolation_tpu_torch.cli import main as cli_main
     from ptv_interpolation_tpu_torch.io import PointCloud, save_ptv_data
     from ptv_interpolation_tpu_torch.io.tiff import write_tiff
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
-    from ptv_interpolation_tpu_torch.ops import fused_mad as fm
     from ptv_interpolation_tpu_torch.utils import StageTimings
     log("== 12a. the two CLIs at the production configuration: "
         "cli.main (porous_glass flags) then cli.analyze_flow (defaults)")
@@ -1888,13 +1902,13 @@ def phase_cli(torch, fluid, pts, vals, tmp, dev="cuda"):
     analyze_flow.run_analysis = timed_analysis
     try:
         printed = io.StringIO()
-        fm._mad_eval.launches = 0
-        fg._fused_eval.launches = 0
-        with contextlib.redirect_stdout(printed):
+        with capture() as rec, contextlib.redirect_stdout(printed):
             _, wall_main = _synced(torch, lambda: cli_main.main(
                 _cli_flags("tracks.csv", "solid.tif", "field.npz")
                 + extra))
-        launches = (fm._mad_eval.launches, fg._fused_eval.launches)
+        counts = rec.counters()
+        launches = (counts.get("kernel2.launches", 0),
+                    counts.get("kernel1.launches", 0))
         with _solves() as solves, contextlib.redirect_stdout(printed):
             _, wall_an = _synced(torch, lambda: analyze_flow.main(
                 ["--input", "field.npz", "--no-interactive"] + extra))
@@ -2123,17 +2137,17 @@ def phase_approx(torch, k):
     problem."""
     from ptv_interpolation_tpu_torch.interpolate import (
         sibson_grid_interpolate)
-    from ptv_interpolation_tpu_torch.ops import grid_knn as gk
     log(f"== 15b. tau_mode='approx' (served by exact selection) against "
         f"'exact', {SMALL_POINTS} points → {SMALL_N}³")
     pts, vals, grid = uniform_problem()
     outs = {}
     for mode in ("approx", "exact"):
-        out, wall = _synced(torch, lambda: sibson_grid_interpolate(
-            pts, vals, grid, k=k, tau_mode=mode, device="cuda"))
+        with capture() as rec:
+            out, wall = _synced(torch, lambda: sibson_grid_interpolate(
+                pts, vals, grid, k=k, tau_mode=mode, device="cuda"))
         outs[mode] = out
         log(f"  tau_mode={mode!r}: {wall:.4f} s, repair ladder "
-            f"{gk.repair_empty_nodes.last_stages}")
+            f"{ {n: v for n, v in rec.counters().items() if 'repair.' in n} }")
     same = torch.equal(outs["approx"], outs["exact"])
     l2 = _interior_l2(torch, outs["approx"], pts, vals, grid)
     log(f"  approx bit for bit equal to exact: {same}; relative L2 vs f64 "
@@ -2542,7 +2556,6 @@ def _grid_job(torch, mesh, workdir, timed):
     """The sharded headline path: a warm-up and 3 timed runs; rank 0
     saves the field."""
     from bench import GRID_N, N_POINTS, K
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
     from ptv_interpolation_tpu_torch.parallel.mesh import all_gather_cat
     from ptv_interpolation_tpu_torch.parallel.sharding import (
         sharded_grid_interpolate)
@@ -2554,12 +2567,13 @@ def _grid_job(torch, mesh, workdir, timed):
 
     out, first = timed(run)
     torch.cuda.reset_peak_memory_stats(mesh.device)
-    fg._fused_eval.launches = 0
     walls = []
-    for _ in range(3):
-        out, wall = timed(run)
-        walls.append(wall)
-    res = dict(first=first, walls=walls, launches=fg._fused_eval.launches,
+    with capture() as rec:
+        for _ in range(3):
+            out, wall = timed(run)
+            walls.append(wall)
+    res = dict(first=first, walls=walls,
+               launches=rec.counters().get("kernel1.launches", 0),
                peak=torch.cuda.max_memory_allocated(mesh.device),
                stats=sharded_grid_interpolate.last_stats)
     # the slabs' all-gather alone, as the path runs it (values + den)

@@ -23,6 +23,7 @@ import torch
 
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.io.csvio import PointCloud
+from ptv_interpolation_tpu_torch.utils import count
 from ptv_interpolation_tpu_torch.ops.neighbors import (bounded_cell_list,
                                                        bruteforce_tile_fn,
                                                        celllist_tile_fn,
@@ -181,10 +182,10 @@ def knn_mad_mask_scatter(points, values, k: int = 25, threshold: float = 3.0,
     directly. The JAX package takes the fused route on a TPU only; here
     it is the route on both devices.
 
-    ``knn_mad_mask_scatter.last_branch`` records what served the last
-    call's uncovered points: ``(branch, n_uncovered)`` with branch one of
-    ``"fused"`` (none uncovered), ``"host_f64"``, ``"exact_scatter"`` or
-    ``"selection"``."""
+    The counter ``filter.branch.<branch>`` counts what served the call's
+    uncovered points, branch one of ``fused`` (none uncovered),
+    ``host_f64``, ``exact_scatter`` or ``selection``, and
+    ``filter.uncovered`` counts those points."""
     from ptv_interpolation_tpu_torch.ops.grid_knn import scatter_knn_apply
 
     pts = np.asarray(points, np.float32)
@@ -216,20 +217,20 @@ def knn_mad_mask_scatter(points, values, k: int = 25, threshold: float = 3.0,
                 keep[unc] = sub[:, 0] > 0.5
                 branch = "exact_scatter"
             if branch != "fused" or n_unc == 0:
-                knn_mad_mask_scatter.last_branch = (branch, n_unc)
+                count("filter.branch." + branch)
+                count("filter.uncovered", n_unc)
                 return keep, radius
             # pathological coverage (>5% uncovered): selection path below
 
     out = scatter_knn_apply(pts, speed, pts, k + 1,
                             _mad_consume(int(k), float(threshold)),
                             out_dim=2, device=device, **kwargs)
-    knn_mad_mask_scatter.last_branch = ("selection", n_unc)
+    count("filter.branch.selection")
+    count("filter.uncovered", n_unc)
     keep = out[:, 0] > 0.5
     radius = float(np.median(out[:, 1]))
     return keep, radius
 
-
-knn_mad_mask_scatter.last_branch = None
 
 
 def remove_outliers_knn(cloud: PointCloud, k: int = 25, threshold: float = 3.0,

@@ -39,6 +39,7 @@ from ptv_interpolation_tpu_torch.interpolate.rbf_local import (
     rbf_local_grid_interpolate, rbf_local_interpolate)
 from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
                                                        bounded_cell_list)
+from ptv_interpolation_tpu_torch.utils import span
 
 _CELLLIST_THRESHOLD = 2 ** 31  # Q·N beyond which brute force is wasteful
 
@@ -170,30 +171,31 @@ def interpolate_field(points, values, grid: Grid, method: str = "linear",
                 or (use_grid_kernel == "auto"
                     and work >= _GRID_FASTPATH_MIN_WORK
                     and n_pts >= _GRID_FASTPATH_MIN_POINTS))
-    if use_fast and method in ("idw", "sibson", "rbf"):
-        if method == "idw":
-            out = idw_grid_interpolate(
-                points, values, grid,
-                k=min(kwargs.get("idw_neighbors", 50), n_pts),
-                power=kwargs.get("idw_power", 2.0), skip_mask=skip_mask,
-                tau_mode=tau_mode, device=dev)
-        elif method == "sibson":
-            out = sibson_grid_interpolate(
-                points, values, grid,
-                k=min(kwargs.get("sibson_neighbors", 30), n_pts),
-                skip_mask=skip_mask, tau_mode=tau_mode, device=dev)
-        else:
-            rbf_neighbors = kwargs.get("rbf_neighbors", 20)
-            if rbf_neighbors is None or rbf_neighbors >= n_pts:
-                use_fast = False  # global RBF: no grid fast path
+    k = {"idw": kwargs.get("idw_neighbors", 50),
+         "sibson": kwargs.get("sibson_neighbors", 30),
+         "rbf": kwargs.get("rbf_neighbors", 20)}.get(method)
+    if method == "rbf" and (k is None or k >= n_pts):
+        use_fast = False                  # global RBF: no grid fast path
+    if use_fast and k is not None:
+        k = min(k, n_pts)
+        with span("ptv.grid", method=method, n_points=n_pts,
+                  nodes=grid.n_points, k=k):
+            if method == "idw":
+                out = idw_grid_interpolate(
+                    points, values, grid, k=k,
+                    power=kwargs.get("idw_power", 2.0), skip_mask=skip_mask,
+                    tau_mode=tau_mode, device=dev)
+            elif method == "sibson":
+                out = sibson_grid_interpolate(
+                    points, values, grid, k=k, skip_mask=skip_mask,
+                    tau_mode=tau_mode, device=dev)
             else:
                 out = rbf_local_grid_interpolate(
-                    points, values, grid, k=min(rbf_neighbors, n_pts),
+                    points, values, grid, k=k,
                     kernel=kwargs.get("rbf_kernel", "thin_plate_spline"),
                     smoothing=kwargs.get("smoothing", 0.0),
                     epsilon=kwargs.get("epsilon", 1.0), device=dev)
-        if use_fast:
-            return out[..., 0], out[..., 1], out[..., 2]
+        return out[..., 0], out[..., 1], out[..., 2]
 
     if method == "linear":
         # grid targets use the fastest exact evaluator, scipy's walk and

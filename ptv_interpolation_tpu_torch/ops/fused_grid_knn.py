@@ -35,6 +35,7 @@ from ptv_interpolation_tpu_torch.ops.grid_knn import (_block_counts,
                                                       _host_setup, _pad_axis,
                                                       repair_empty_nodes)
 from ptv_interpolation_tpu_torch.ops.neighbors import CellList, cell_meta_np
+from ptv_interpolation_tpu_torch.utils import count, span, wait
 
 _EPS = 1e-10              # weight epsilon of the reference formulas
 _BISECT_ITERS = 24
@@ -222,12 +223,12 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
 
     ``cand`` is the (8, n_blocks·C) panel of :func:`_compact_gather`,
     ``q*_all`` the (n_blocks·n_sub, 1, Bt) rows of :func:`_build_queries`.
-    On CUDA tensors this launches the kernel (and counts the launch in
-    ``_fused_eval.launches``; ``_fused_eval.last_overflow`` is then a
-    one-int device tensor, the number of nodes whose shortlist did not fit
-    and which ran over the whole panel); on CPU tensors it runs
-    :func:`_fused_eval_plain`. ``tau2`` (optional, (n_blocks·n_sub, Bt)
-    f32, contiguous, on cand's device) receives every node's τ²."""
+    On CUDA tensors this launches the kernel (counters ``kernel1.launches``
+    and ``kernel1.overflow``, a device count of the nodes whose shortlist
+    did not fit and which ran over the whole panel); on CPU tensors it runs
+    :func:`_fused_eval_plain`. Either runs in the span
+    ``ptv.grid.kernel1``. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32,
+    contiguous, on cand's device) receives every node's τ²."""
     bz, by, bx = block
     n_sub = bz // sz
     Bt = sz * by * bx
@@ -253,47 +254,44 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
             or not tau2.is_contiguous()):
         raise ValueError(f"tau2 must be a contiguous ({n_blocks * n_sub}, "
                          f"{Bt}) float32 tensor on {cand.device}")
-    if cand.device.type == "cpu":
-        if tau2 is not None:
-            tau2.copy_(_fused_tau2_plain(m2, cand, qx_all, qy_all, qz_all,
-                                         block, sz, k, C))
-        return _fused_eval_plain(m2, cand, qx_all, qy_all, qz_all, block, sz,
-                                 k, V, C, mode, power)
-    if cand.device.type != "cuda":
-        raise ValueError(f"unsupported device {cand.device}")
-    if not all(t.is_contiguous() for t in (cand, qx_all, qy_all, qz_all)):
-        raise ValueError("cand and queries must be contiguous")
-    if Bt > 1024:
-        raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
-    S, smem = _shortlist_plan(C, Bt, int(k), boxes=True)
-    if smem > _SMEM_BYTES:
-        raise ValueError(f"panel width C={C} exceeds the kernel's shared "
-                         f"memory (17·C bytes ≤ 227 KB)")
-    lib = _kernel_lib()
-    out = torch.empty((n_blocks, n_sub, 8, Bt), dtype=torch.float32,
-                      device=cand.device)
-    if n_blocks == 0:
+    with span("ptv.grid.kernel1", n_blocks=n_blocks, C=C):
+        if cand.device.type == "cpu":
+            if tau2 is not None:
+                tau2.copy_(_fused_tau2_plain(m2, cand, qx_all, qy_all, qz_all,
+                                             block, sz, k, C))
+            return _fused_eval_plain(m2, cand, qx_all, qy_all, qz_all, block,
+                                     sz, k, V, C, mode, power)
+        if cand.device.type != "cuda":
+            raise ValueError(f"unsupported device {cand.device}")
+        if not all(t.is_contiguous() for t in (cand, qx_all, qy_all, qz_all)):
+            raise ValueError("cand and queries must be contiguous")
+        if Bt > 1024:
+            raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
+        S, smem = _shortlist_plan(C, Bt, int(k), boxes=True)
+        if smem > _SMEM_BYTES:
+            raise ValueError(f"panel width C={C} exceeds the kernel's shared "
+                             f"memory (17·C bytes ≤ 227 KB)")
+        lib = _kernel_lib()
+        out = torch.empty((n_blocks, n_sub, 8, Bt), dtype=torch.float32,
+                          device=cand.device)
+        if n_blocks == 0:
+            return out
+        overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
+        with torch.cuda.device(cand.device):
+            stream = torch.cuda.current_stream(cand.device).cuda_stream
+            err = lib.fused_grid_knn_launch(
+                cand.data_ptr(), qx_all.data_ptr(), qy_all.data_ptr(),
+                qz_all.data_ptr(), out.data_ptr(),
+                None if tau2 is None else tau2.data_ptr(), overflow.data_ptr(),
+                n_blocks, C, n_sub, Bt, int(k), V, _MODES[mode], float(power),
+                float(m2), S, stream)
+        if err != 0:
+            msg = lib.fused_grid_knn_error_string(err).decode()
+            raise RuntimeError(f"fused_grid_knn kernel launch failed: {msg} "
+                               f"(cudaError {err})")
+        count("kernel1.launches")
+        count("kernel1.overflow", overflow)
         return out
-    overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
-    with torch.cuda.device(cand.device):
-        stream = torch.cuda.current_stream(cand.device).cuda_stream
-        err = lib.fused_grid_knn_launch(
-            cand.data_ptr(), qx_all.data_ptr(), qy_all.data_ptr(),
-            qz_all.data_ptr(), out.data_ptr(),
-            None if tau2 is None else tau2.data_ptr(), overflow.data_ptr(),
-            n_blocks, C, n_sub, Bt, int(k), V, _MODES[mode], float(power),
-            float(m2), S, stream)
-    if err != 0:
-        msg = lib.fused_grid_knn_error_string(err).decode()
-        raise RuntimeError(f"fused_grid_knn kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-    _fused_eval.launches += 1
-    _fused_eval.last_overflow = overflow
-    return out
-
-
-_fused_eval.launches = 0
-_fused_eval.last_overflow = None
 
 
 def _fused_tau2_plain(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
@@ -403,11 +401,12 @@ def _fused_eval_plain(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
 def _block_total_capacity(cells: CellList, axes_np, margin: float,
                           block: Tuple[int, int, int],
                           grid_shape: Tuple[int, int, int],
-                          mc: Tuple[int, int, int], ids=None) -> int:
+                          mc: Tuple[int, int, int], ids=None,
+                          site: str = "block_capacity") -> int:
     """Maximum candidate count over the blocks (or over ``ids`` only):
     the panel width C before rounding. Per-block totals come from an
     integral image of the CSR row counts, computed where ``starts``
-    lives; one scalar crosses to the host."""
+    lives; one scalar crosses to the host (the wait ``site``)."""
     bz, by, bx = block
     nz, ny, nx = grid_shape
     nbz, nby, nbx = (_block_counts(nz, bz), _block_counts(ny, by),
@@ -452,7 +451,10 @@ def _block_total_capacity(cells: CellList, axes_np, margin: float,
     tot = T1[:, cy_idx, :].sum(dim=2)               # (nbz, nby, nbx)
     if ids is not None:
         tot = tot.reshape(-1)[t(ids)]
-    return int(tot.max().item()) if tot.numel() else 1
+    if not tot.numel():
+        return 1
+    with wait(site):
+        return int(tot.max().item())
 
 
 def _pick_sz(bz: int, by: int, bx: int, target: int = 256) -> int:
@@ -484,19 +486,40 @@ def fused_block_sums(cells: CellList, values_sorted, axes, margin: float,
     ``(field, den)``, (nz, ny, nx, V) and (nz, ny, nx); ``den`` is 0 on
     uncovered nodes. The one-device path runs it on the whole grid, the
     z-slab-sharded path on each rank's slab and store window."""
+    out = _fused_main_pass(cells, values_sorted, axes, margin, block,
+                           grid_shape, mc, C, k, mode, power)
+    return _fused_reassemble(out, block, grid_shape, values_sorted.shape[1])
+
+
+def _fused_main_pass(cells: CellList, values_sorted, axes, margin: float,
+                     block, grid_shape, mc, C: int, k: int, mode: str,
+                     power: float) -> torch.Tensor:
+    """Phase 1 (the span ``ptv.grid.panel``) and kernel 1's launch over
+    every block: the kernel's (n_blocks, n_sub, 8, Bt) rows."""
     bz, by, bx = block
     nz, ny, nx = grid_shape
     dims = (_block_counts(nz, bz), _block_counts(ny, by),
             _block_counts(nx, bx))
-    V = values_sorted.shape[1]
     sz = _pick_sz(bz, by, bx)
-    cand = _compact_gather(cells, values_sorted, axes, margin, block,
-                           grid_shape, mc, C)
-    qx, qy, qz = _build_queries(axes, block, dims, sz, device=cells.device)
-    out = _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
-                      sz, int(k), V, C, mode, float(power))
-    del cand, qx, qy, qz
-    out = _reassemble(out, block, dims, sz, grid_shape)
+    with span("ptv.grid.panel"):
+        cand = _compact_gather(cells, values_sorted, axes, margin, block,
+                               grid_shape, mc, C)
+        qx, qy, qz = _build_queries(axes, block, dims, sz,
+                                    device=cells.device)
+    return _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
+                       sz, int(k), values_sorted.shape[1], C, mode,
+                       float(power))
+
+
+def _fused_reassemble(out: torch.Tensor, block, grid_shape, V: int):
+    """The main pass's rows in node order, in the span
+    ``ptv.grid.reassemble``: ``(field, den)``."""
+    bz, by, bx = block
+    nz, ny, nx = grid_shape
+    dims = (_block_counts(nz, bz), _block_counts(ny, by),
+            _block_counts(nx, bx))
+    with span("ptv.grid.reassemble"):
+        out = _reassemble(out, block, dims, _pick_sz(bz, by, bx), grid_shape)
     return out[..., :V], out[..., V]
 
 
@@ -508,25 +531,36 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
                                     device="cuda") -> torch.Tensor:
     """IDW/sibson onto ``grid`` via the fused two-phase kernel on
     ``device``. Returns an (nz, ny, nx, V) tensor with uncovered nodes
-    repaired exactly."""
+    repaired exactly.
+
+    Spans: ``ptv.grid.prepare`` (the host's path up to kernel 1's main
+    launch: ``.upload``, ``.cells``, ``.capacity``, ``.panel``,
+    ``.kernel1``), ``ptv.grid.reassemble``, ``ptv.grid.repair``."""
     dev = resolve_device(device)
-    pts = as_f32(points, dev)
-    vals = as_f32(values, dev)
-    if block is None:
-        block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
-    block = tuple(block)
+    with span("ptv.grid.prepare"):
+        with span("ptv.grid.upload"):
+            pts = as_f32(points, dev)
+            vals = as_f32(values, dev)
+        if block is None:
+            block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
+        block = tuple(block)
 
-    cells, values_sorted, axes, margin, mc, _row_len, vals = _host_setup(
-        pts, vals, grid, k, block, margin_factor, cell_divisor=3.0,
-        device=dev)
-    C = _panel_width(_block_total_capacity(cells, axes, margin, block,
-                                           grid.shape, mc))
-    if C > max_panel:
-        raise FusedCapacityError(
-            f"compacted candidate panel {C} exceeds max_panel={max_panel}")
-
-    field, den = fused_block_sums(cells, values_sorted, axes, margin, block,
-                                  grid.shape, mc, C, k, mode, power)
+        with span("ptv.grid.cells"):
+            cells, values_sorted, axes, margin, mc, _row_len, vals = \
+                _host_setup(pts, vals, grid, k, block, margin_factor,
+                            cell_divisor=3.0, device=dev)
+        with span("ptv.grid.capacity") as sp:
+            C = _panel_width(_block_total_capacity(cells, axes, margin, block,
+                                                   grid.shape, mc))
+            sp.set(C=C)
+        if C > max_panel:
+            raise FusedCapacityError(
+                f"compacted candidate panel {C} exceeds max_panel={max_panel}")
+        out = _fused_main_pass(cells, values_sorted, axes, margin, block,
+                               grid.shape, mc, C, k, mode, power)
+    field, den = _fused_reassemble(out, block, grid.shape,
+                                   values_sorted.shape[1])
+    del out                       # the kernel's rows, before the repair
     return repair_empty_nodes(field, den, pts, vals, grid, k, mode, power,
                               cells=cells, margin=margin,
                               skip_mask=skip_mask,
@@ -552,7 +586,8 @@ def _repair_survey(den: torch.Tensor, skip, block, dims,
     badp[:nz, :ny, :nx] = bad
     blk_bad = badp.reshape(nbz, bz, nby, by, nbx, bx).any(dim=5).any(
         dim=3).any(dim=1)
-    ids = torch.nonzero(blk_bad.reshape(-1)).squeeze(1)[:nblk_max]
+    with wait("repair.blocks"):
+        ids = torch.nonzero(blk_bad.reshape(-1)).squeeze(1)[:nblk_max]
     out = torch.full((2 + nblk_max,), -1, dtype=torch.int32,
                      device=den.device)
     out[0] = bad.sum()
@@ -615,11 +650,13 @@ def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
     n_sel = ids.shape[0]
     den_eff = den if skip is None else torch.where(skip, 1.0, den)
 
-    cand = _compact_gather(cells, values_sorted, axes2, margin2, block,
-                           grid_shape, mc, C, ids=ids)
+    with span("ptv.grid.panel"):
+        cand = _compact_gather(cells, values_sorted, axes2, margin2, block,
+                               grid_shape, mc, C, ids=ids)
+        qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids,
+                                    device=dev)
     # f32 product, as the JAX package forms margin2² on the device
     m2 = np.float32(margin2) * np.float32(margin2)
-    qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids, device=dev)
     sub = _fused_eval(m2, cand, qx, qy, qz, block, sz, k, V, C, mode, power)
     # (n_sel, n_sub, 8, Bt) → (n_sel, B, 8) rows in local (tz, ty, tx) order
     rows = sub.reshape(n_sel, n_sub, 8, sz, by * bx).permute(0, 1, 3, 4, 2)
@@ -638,13 +675,17 @@ def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
     flat = ((iz * ny + iy) * nx + ix).reshape(n_sel, B)
     den_at = den_eff.reshape(-1)[flat.clamp(0, nz * ny * nx - 1)]
     valid = in_grid & (den_at == 0.0) & (den2 > 0.0)
-    idx = flat[valid]                    # unique nodes: one row per node
+    with wait("repair.select"):
+        idx = flat[valid]                # unique nodes: one row per node
     field2 = field.reshape(-1, V).clone()
-    field2[idx] = vals_new[valid]
+    with wait("repair.select"):
+        field2[idx] = vals_new[valid]
     den_out = den_eff.reshape(-1).clone()
     den_out[idx] = 1.0
+    with wait("repair.certified"):
+        n_rep = int(valid.sum().item())
     return (field2.reshape(grid_shape + (V,)), den_out.reshape(grid_shape),
-            int(valid.sum().item()))
+            n_rep)
 
 
 def fused_repair(field, den, skip_mask, cells: CellList, values_sorted,
@@ -663,7 +704,9 @@ def fused_repair(field, den, skip_mask, cells: CellList, values_sorted,
             _block_counts(nx, bx))
     skip = (None if skip_mask is None else
             torch.as_tensor(skip_mask, dtype=torch.bool, device=den.device))
-    survey = _repair_survey(den, skip, block, dims, _NBLK_MAX).cpu().numpy()
+    survey = _repair_survey(den, skip, block, dims, _NBLK_MAX)
+    with wait("repair.survey"):
+        survey = survey.cpu().numpy()
     n_fix, n_bad = int(survey[0]), int(survey[1])
     if n_fix == 0:
         return field, den, 0
@@ -680,7 +723,8 @@ def fused_repair(field, den, skip_mask, cells: CellList, values_sorted,
     axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
              _pad_axis(grid.z, bz))
     C = _panel_width(_block_total_capacity(cells, axes2, margin2, block,
-                                           grid.shape, mc2, ids=ids_np))
+                                           grid.shape, mc2, ids=ids_np,
+                                           site="repair.capacity"))
     if C > max_panel:
         return None
     V = field.shape[-1]

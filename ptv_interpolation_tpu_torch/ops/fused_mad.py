@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ptv_interpolation_tpu_torch.device import resolve_device
+from ptv_interpolation_tpu_torch.utils import count, span
 from ptv_interpolation_tpu_torch.ops.fused_grid_knn import (_SMEM_BYTES,
                                                           _compact_rows,
                                                           _shortlist_plan)
@@ -160,11 +161,11 @@ def _mad_eval(m2: float, cand: torch.Tensor, qx: torch.Tensor,
 
     ``cand`` is the (4, n_blocks·C) panel [x, y, z, speed]; ``q*`` the
     (n_blocks, 1, Bt) query rows. On CUDA tensors this launches the
-    kernel (and counts the launch in ``_mad_eval.launches``;
-    ``_mad_eval.last_overflow`` is then a one-int device tensor, the number
-    of real (not padding) queries whose shortlist did not fit and which
-    ran over the whole panel); on CPU tensors it runs
-    :func:`_mad_eval_plain`."""
+    kernel (counters ``kernel2.launches`` and ``kernel2.overflow``, a
+    device count of the real (not padding) queries whose shortlist did not
+    fit and which ran over the whole panel); on CPU tensors it runs
+    :func:`_mad_eval_plain`. Either runs in the span
+    ``ptv.filter.kernel2``."""
     if cand.dtype != torch.float32 or cand.dim() != 2 or cand.shape[0] != 4 \
             or C <= 0 or cand.shape[1] % C:
         raise ValueError(f"cand must be (4, n_blocks*{C}) float32, got "
@@ -178,40 +179,38 @@ def _mad_eval(m2: float, cand: torch.Tensor, qx: torch.Tensor,
             raise ValueError("cand and queries must be on one device")
     if k < 1:
         raise ValueError(f"k={k}: need at least one neighbour")
-    if cand.device.type == "cpu":
-        return _mad_eval_plain(m2, cand, qx, qy, qz, qs, k, threshold, Bt, C)
-    if cand.device.type != "cuda":
-        raise ValueError(f"unsupported device {cand.device}")
-    if not all(t.is_contiguous() for t in (cand, qx, qy, qz, qs)):
-        raise ValueError("cand and queries must be contiguous")
-    sub = min(Bt, _SUB_TILE)
-    S, smem = _shortlist_plan(C, sub, int(k) + 1)
-    if smem > _SMEM_BYTES:
-        raise ValueError(f"panel width C={C} exceeds the kernel's shared "
-                         f"memory (16·C bytes ≤ 227 KB)")
-    lib = _kernel_lib()
-    out = torch.empty((n_blocks, 8, Bt), dtype=torch.float32,
-                      device=cand.device)
-    if n_blocks == 0:
+    with span("ptv.filter.kernel2", n_blocks=n_blocks, C=C):
+        if cand.device.type == "cpu":
+            return _mad_eval_plain(m2, cand, qx, qy, qz, qs, k, threshold,
+                                   Bt, C)
+        if cand.device.type != "cuda":
+            raise ValueError(f"unsupported device {cand.device}")
+        if not all(t.is_contiguous() for t in (cand, qx, qy, qz, qs)):
+            raise ValueError("cand and queries must be contiguous")
+        sub = min(Bt, _SUB_TILE)
+        S, smem = _shortlist_plan(C, sub, int(k) + 1)
+        if smem > _SMEM_BYTES:
+            raise ValueError(f"panel width C={C} exceeds the kernel's shared "
+                             f"memory (16·C bytes ≤ 227 KB)")
+        lib = _kernel_lib()
+        out = torch.empty((n_blocks, 8, Bt), dtype=torch.float32,
+                          device=cand.device)
+        if n_blocks == 0:
+            return out
+        overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
+        with torch.cuda.device(cand.device):
+            stream = torch.cuda.current_stream(cand.device).cuda_stream
+            err = lib.fused_mad_launch(
+                cand.data_ptr(), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+                qs.data_ptr(), out.data_ptr(), overflow.data_ptr(), n_blocks,
+                C, Bt, sub, int(k), float(threshold), float(m2), S, stream)
+        if err != 0:
+            msg = lib.fused_mad_error_string(err).decode()
+            raise RuntimeError(f"fused_mad kernel launch failed: {msg} "
+                               f"(cudaError {err})")
+        count("kernel2.launches")
+        count("kernel2.overflow", overflow)
         return out
-    overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
-    with torch.cuda.device(cand.device):
-        stream = torch.cuda.current_stream(cand.device).cuda_stream
-        err = lib.fused_mad_launch(
-            cand.data_ptr(), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
-            qs.data_ptr(), out.data_ptr(), overflow.data_ptr(), n_blocks, C,
-            Bt, sub, int(k), float(threshold), float(m2), S, stream)
-    if err != 0:
-        msg = lib.fused_mad_error_string(err).decode()
-        raise RuntimeError(f"fused_mad kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-    _mad_eval.launches += 1
-    _mad_eval.last_overflow = overflow
-    return out
-
-
-_mad_eval.launches = 0
-_mad_eval.last_overflow = None
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:

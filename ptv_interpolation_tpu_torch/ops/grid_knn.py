@@ -45,6 +45,7 @@ from ptv_interpolation_tpu_torch.grid import Grid
 from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
                                                        build_cell_list,
                                                        cell_meta_np)
+from ptv_interpolation_tpu_torch.utils import count, span, wait
 
 _ROW_PAD = 1024   # sentinel rows after the sorted arrays bound a row's length
 _BIG = 3.4e38     # sentinel squared distance of an empty candidate slot
@@ -97,7 +98,8 @@ def _row_capacity(cells: CellList, mcx: int) -> int:
     csum = torch.cat([counts.new_zeros((ncz * ncy, 1)),
                       torch.cumsum(counts, dim=1)], dim=1)
     windows = csum[:, w:] - csum[:, :-w] if ncx > w else csum[:, -1:]
-    return max(int(windows.max().item()), 1)
+    with wait("row_capacity"):
+        return max(int(windows.max().item()), 1)
 
 
 def _host_setup(points, values, grid: Grid, k: int, block, margin_factor,
@@ -121,9 +123,11 @@ def _host_setup(points, values, grid: Grid, k: int, block, margin_factor,
     pts = as_f32(points, dev)
     vals = as_f32(values, dev)
     n = pts.shape[0]
-    hi = pts.amax(dim=0).cpu().numpy()
+    with wait("bounds"):
+        hi = pts.amax(dim=0).cpu().numpy()
     if cells is None:
-        lo = pts.amin(dim=0).cpu().numpy()
+        with wait("bounds"):
+            lo = pts.amin(dim=0).cpu().numpy()
     else:
         if cells.device != pts.device:   # 'cuda' and 'cuda:0' are one
             raise ValueError(f"cells live on {cells.device}, not on "
@@ -546,10 +550,19 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
     caller overwrites anyway. The CUDA device runs the kernels, the CPU
     their plain versions. Returns the repaired (nz, ny, nx, V) field.
 
-    ``repair_empty_nodes.last_stages`` records the last call: the number
-    of uncovered nodes (``"uncovered"``) and, for each stage that ran
-    (``"fused"``, ``"subset"``, ``"celllist"``, ``"bruteforce"``), how
-    many nodes it served."""
+    It runs in the span ``ptv.grid.repair`` and each stage that runs in
+    ``ptv.grid.repair.<stage>``; the counter ``repair.uncovered`` counts
+    the uncovered nodes and ``repair.<stage>`` the nodes each stage that
+    ran served (``fused``, ``subset``, ``celllist``, ``bruteforce``)."""
+    with span("ptv.grid.repair"):
+        return _repair_ladder(out, den, points, values, grid, k, mode, power,
+                              cells, margin, skip_mask, values_sorted, block)
+
+
+def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
+                   power: float, cells, margin, skip_mask, values_sorted,
+                   block):
+    """The body of :func:`repair_empty_nodes`."""
     dev = out.device
     skip = (None if skip_mask is None else
             torch.as_tensor(skip_mask, dtype=torch.bool, device=dev))
@@ -558,23 +571,24 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
         den_zero = den == 0.0
         if skip is not None:
             den_zero &= ~skip
-        return torch.nonzero(den_zero.reshape(-1)).squeeze(1)
+        with wait("repair.uncovered"):
+            return torch.nonzero(den_zero.reshape(-1)).squeeze(1)
 
     flat = uncovered(den)
-    stages = {"uncovered": flat.numel()}
-    repair_empty_nodes.last_stages = stages
+    count("repair.uncovered", flat.numel())
     if flat.numel() == 0:
         return out
     ladder = cells is not None and margin is not None
     shared = ladder and block is not None and values_sorted is not None
     if shared:
         from ptv_interpolation_tpu_torch.ops import fused_grid_knn
-        res = fused_grid_knn.fused_repair(
-            out, den, skip_mask, cells, values_sorted, grid, k, mode, power,
-            tuple(block), float(margin))
+        with span("ptv.grid.repair.fused"):
+            res = fused_grid_knn.fused_repair(
+                out, den, skip_mask, cells, values_sorted, grid, k, mode,
+                power, tuple(block), float(margin))
         if res is not None:
             out, den, n_left = res
-            stages["fused"] = flat.numel() - n_left
+            count("repair.fused", flat.numel() - n_left)
             if n_left == 0:
                 return out
             # the widened margin could not certify these: brute force
@@ -594,15 +608,16 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
     ran_subset = False
 
     if shared:
-        sub = _repair_subset_stage(cells, values_sorted, grid, kk, mode,
-                                   power, tuple(block), float(margin),
-                                   (iz, iy, ix), n_fix, V)
-        if sub is not None:
-            good, vals_sub = sub
-            fixed[good] = vals_sub[good]
-            todo = todo[~good]
-            stages["subset"] = int(good.sum().item())
-            ran_subset = True
+        with span("ptv.grid.repair.subset"):
+            sub = _repair_subset_stage(cells, values_sorted, grid, kk, mode,
+                                       power, tuple(block), float(margin),
+                                       (iz, iy, ix), n_fix, V)
+            if sub is not None:
+                good, vals_sub = sub
+                fixed[good] = vals_sub[good]
+                todo = todo[~good]
+                count("repair.subset", good.sum())
+                ran_subset = True
 
     if ladder and not ran_subset and todo.numel():
         cell_size = 1.0 / cell_meta_np(cells)[1]
@@ -612,22 +627,35 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
         # package bounds it; bigger neighbourhoods go to brute force,
         # which streams the points instead
         if rings <= 6 and n_cand <= 16384:
-            qp, m = _pad_pow2(queries)
-            if values_sorted is not None:
-                vals_cl, good = _celllist_repair_eval_csr(
-                    cells, values_sorted, qp, kk, rings, mode, float(power),
-                    rings * cell_size, query_tile=256)
-            else:
-                vals_cl, good = _celllist_repair_eval(
-                    cells, as_f32(values, dev), qp, kk, rings, mode,
-                    float(power), rings * cell_size, query_tile=256)
-            good = good[:m]
-            fixed[good] = vals_cl[:m][good]
-            todo = todo[~good]
-            stages["celllist"] = int(good.sum().item())
+            with span("ptv.grid.repair.celllist"):
+                qp, m = _pad_pow2(queries)
+                if values_sorted is not None:
+                    vals_cl, good = _celllist_repair_eval_csr(
+                        cells, values_sorted, qp, kk, rings, mode,
+                        float(power), rings * cell_size, query_tile=256)
+                else:
+                    vals_cl, good = _celllist_repair_eval(
+                        cells, as_f32(values, dev), qp, kk, rings, mode,
+                        float(power), rings * cell_size, query_tile=256)
+                good = good[:m]
+                fixed[good] = vals_cl[:m][good]
+                todo = todo[~good]
+                count("repair.celllist", good.sum())
 
     if todo.numel():
-        n_nodes = nz * ny * nx
+        _repair_bruteforce(points, values, queries, todo, fixed, kk, mode,
+                           power, nz * ny * nx, dev)
+
+    out = out.reshape(-1, V).clone()
+    out[flat] = fixed
+    return out.reshape(den.shape + (V,))
+
+
+def _repair_bruteforce(points, values, queries, todo, fixed, kk: int,
+                       mode: str, power: float, n_nodes: int, dev):
+    """Stage 4 of :func:`repair_empty_nodes`: exact brute force for the
+    nodes ``todo``, written into ``fixed``."""
+    with span("ptv.grid.repair.bruteforce"):
         if todo.numel() > 0.01 * n_nodes:
             print(f"[grid_knn] repairing {todo.numel()}/{n_nodes} uncovered "
                   f"grid nodes ({100.0 * todo.numel() / n_nodes:.1f}%) "
@@ -645,14 +673,7 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
                 part = sibson_interpolate(points, values, qc, k=kk,
                                           device=dev)
             fixed[sel] = part[:m]
-        stages["bruteforce"] = todo.numel()
-
-    out = out.reshape(-1, V).clone()
-    out[flat] = fixed
-    return out.reshape(den.shape + (V,))
-
-
-repair_empty_nodes.last_stages = None
+        count("repair.bruteforce", todo.numel())
 
 
 def _repair_subset_stage(cells: CellList, values_sorted, grid: Grid, kk: int,
@@ -781,8 +802,10 @@ def grid_weighted_interpolate(points, values, grid: Grid, k: int,
                 raise
     dev = resolve_device(device)
     try:
-        setup = _host_setup(points, values, grid, k, block, margin_factor,
-                            device=dev, cells=cells, cell_size=cell_size)
+        with span("ptv.grid.prepare"), span("ptv.grid.cells"):
+            setup = _host_setup(points, values, grid, k, block,
+                                margin_factor, device=dev, cells=cells,
+                                cell_size=cell_size)
     except RowCapacityError:
         out = _generic_knn_fallback(points, values, grid.flat_coords(dev),
                                     mode, power, k, device=dev)

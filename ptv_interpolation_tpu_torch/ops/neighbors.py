@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
+from ptv_interpolation_tpu_torch.utils import wait
 
 _BIG = 3.4e38          # sentinel squared distance for missing neighbours
 _PAD_ROWS = 1024       # far-sentinel rows after the sorted points
@@ -197,8 +198,10 @@ def build_cell_list(points, cell_size: float | None = None, k_hint: int = 32,
         lo = np.asarray(bounds[0], np.float32)
         hi = np.asarray(bounds[1], np.float32)
     else:
-        lo = pts.amin(dim=0).cpu().numpy()
-        hi = pts.amax(dim=0).cpu().numpy()
+        with wait("bounds"):
+            lo = pts.amin(dim=0).cpu().numpy()
+        with wait("bounds"):
+            hi = pts.amax(dim=0).cpu().numpy()
     if cell_size is None:
         cell_size = auto_cell_size(n, lo, hi, k_hint)
     extent = np.maximum(hi - lo, 1e-12)
@@ -224,7 +227,10 @@ def build_cell_list(points, cell_size: float | None = None, k_hint: int = 32,
     points_sorted = torch.cat(
         [pts[order], torch.full((_PAD_ROWS, 3), _SENTINEL, dtype=torch.float32,
                                 device=dev)])
-    cap = int(torch.diff(starts).max().item()) if n else 1
+    cap = 1
+    if n:
+        with wait("cell_cap"):
+            cap = int(torch.diff(starts).max().item())
     return CellList(
         starts=starts,
         order=order.to(torch.int32),

@@ -38,6 +38,7 @@ from ptv_interpolation_tpu_torch.ops.grid_knn import (_block_counts,
                                                       _block_queries,
                                                       _reassemble_blocks)
 from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+from ptv_interpolation_tpu_torch.utils import count, span
 
 _BIG = 1e19               # sentinel coordinate of the store's gap columns
 _EPS = 1e-10
@@ -269,51 +270,49 @@ def _pallas_eval(starts: torch.Tensor, ids: torch.Tensor, axes,
     local (z, y, x) order: Σw·v_c / max(Σw, 1e-37) for the three channels
     and τ² in column 3.
 
-    On CUDA tensors this launches ``csrc/pallas_grid_knn.cu`` (and counts
-    the launch in ``_pallas_eval.launches``; ``_pallas_eval.last_overflow``
-    is then a one-int device tensor, the number of nodes whose shortlist
-    did not fit and which ran over the whole panel); on CPU tensors it runs
-    :func:`_pallas_eval_plain`."""
+    On CUDA tensors this launches ``csrc/pallas_grid_knn.cu`` (counters
+    ``kernel3.launches`` and ``kernel3.overflow``, a device count of the
+    nodes whose shortlist did not fit and which ran over the whole panel);
+    on CPU tensors it runs :func:`_pallas_eval_plain`. Either runs in the
+    span ``ptv.grid.kernel3``."""
     _check_inputs(starts, ids, axes, store, block, dims, L, mode)
-    if store.device.type == "cpu":
-        return _pallas_eval_plain(starts, ids, axes, store, block, dims, L,
-                                  k, mode, power, bisect_iters)
-    if store.device.type != "cuda":
-        raise ValueError(f"unsupported device {store.device}")
-    bz, by, bx = block
-    B = bz * by * bx
-    n, R = starts.shape
-    if B > 1024:
-        raise ValueError(f"block of {B} nodes exceeds 1024 threads")
-    if store.shape[1] >= 2 ** 31:
-        raise ValueError(f"store of {store.shape[1]} columns exceeds int32")
-    if not all(t.is_contiguous() for t in (starts, ids, store, *axes)):
-        raise ValueError("starts, ids, axes and store must be contiguous")
-    S, chunk, _ = _list_plan(R * L, B, int(k))
-    lib = _kernel_lib()
-    out = torch.empty((n, B, 4), dtype=torch.float32, device=store.device)
-    if n == 0:
+    with span("ptv.grid.kernel3", n_blocks=ids.shape[0]):
+        if store.device.type == "cpu":
+            return _pallas_eval_plain(starts, ids, axes, store, block, dims, L,
+                                      k, mode, power, bisect_iters)
+        if store.device.type != "cuda":
+            raise ValueError(f"unsupported device {store.device}")
+        bz, by, bx = block
+        B = bz * by * bx
+        n, R = starts.shape
+        if B > 1024:
+            raise ValueError(f"block of {B} nodes exceeds 1024 threads")
+        if store.shape[1] >= 2 ** 31:
+            raise ValueError(f"store of {store.shape[1]} columns exceeds "
+                             f"int32")
+        if not all(t.is_contiguous() for t in (starts, ids, store, *axes)):
+            raise ValueError("starts, ids, axes and store must be contiguous")
+        S, chunk, _ = _list_plan(R * L, B, int(k))
+        lib = _kernel_lib()
+        out = torch.empty((n, B, 4), dtype=torch.float32, device=store.device)
+        if n == 0:
+            return out
+        overflow = torch.zeros(1, dtype=torch.int32, device=store.device)
+        with torch.cuda.device(store.device):
+            stream = torch.cuda.current_stream(store.device).cuda_stream
+            err = lib.pallas_grid_knn_launch(
+                starts.data_ptr(), ids.data_ptr(), axes[0].data_ptr(),
+                axes[1].data_ptr(), axes[2].data_ptr(), store.data_ptr(),
+                out.data_ptr(), overflow.data_ptr(), store.shape[1], n, R, L,
+                chunk, S, B, by, bx, dims[1], dims[2], int(k), _MODES[mode],
+                max(int(bisect_iters), 0), _LIST_AFTER, float(power), stream)
+        if err != 0:
+            msg = lib.pallas_grid_knn_error_string(err).decode()
+            raise RuntimeError(f"pallas_grid_knn kernel launch failed: {msg} "
+                               f"(cudaError {err})")
+        count("kernel3.launches")
+        count("kernel3.overflow", overflow)
         return out
-    overflow = torch.zeros(1, dtype=torch.int32, device=store.device)
-    with torch.cuda.device(store.device):
-        stream = torch.cuda.current_stream(store.device).cuda_stream
-        err = lib.pallas_grid_knn_launch(
-            starts.data_ptr(), ids.data_ptr(), axes[0].data_ptr(),
-            axes[1].data_ptr(), axes[2].data_ptr(), store.data_ptr(),
-            out.data_ptr(), overflow.data_ptr(), store.shape[1], n, R, L,
-            chunk, S, B, by, bx, dims[1], dims[2], int(k), _MODES[mode],
-            max(int(bisect_iters), 0), _LIST_AFTER, float(power), stream)
-    if err != 0:
-        msg = lib.pallas_grid_knn_error_string(err).decode()
-        raise RuntimeError(f"pallas_grid_knn kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-    _pallas_eval.launches += 1
-    _pallas_eval.last_overflow = overflow
-    return out
-
-
-_pallas_eval.launches = 0
-_pallas_eval.last_overflow = None
 
 
 def _sum_f32(x: torch.Tensor) -> torch.Tensor:

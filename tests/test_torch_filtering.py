@@ -14,6 +14,7 @@ from ptv_interpolation_tpu_torch import filtering as tf
 from ptv_interpolation_tpu_torch.io.csvio import PointCloud
 from ptv_interpolation_tpu_torch.ops.grid_knn import scatter_knn_apply
 from ptv_interpolation_tpu_torch.ops.neighbors import build_cell_list
+from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
@@ -43,6 +44,15 @@ def _reference_knn_mask(points, values, k, threshold):
     return np.abs(speed - med) / (mad + 1e-6) <= threshold
 
 
+def _branch(rec):
+    """``(branch, n_uncovered)`` of the one filter call in a capture."""
+    counts = rec.counters()
+    branches = [name.rsplit(".", 1)[1] for name in counts
+                if name.startswith("filter.branch.")]
+    assert len(branches) == 1, counts
+    return branches[0], counts["filter.uncovered"]
+
+
 def _extreme_cloud():
     """``tests/test_filtering.py:109-135``: a mild speed gradient that puts
     many z-scores near the cut, plus one outlier at 1e6× typical speed."""
@@ -61,13 +71,14 @@ def test_scatter_mad_full_parity_with_reference_on_extreme_outlier(k):
     parity with the f64 reference at odd and even k, and removes the
     extreme outlier."""
     pts, vals, extreme = _extreme_cloud()
-    keep, radius = tf.knn_mad_mask_scatter(pts, vals, k=k, threshold=3.0,
-                                           device="cpu")
+    with capture() as rec:
+        keep, radius = tf.knn_mad_mask_scatter(pts, vals, k=k,
+                                               threshold=3.0, device="cpu")
     ref = _reference_knn_mask(pts.astype(np.float64),
                               vals.astype(np.float64), k, 3.0)
     assert not keep[extreme]
     assert (keep == ref).mean() == 1.0
-    branch, n_unc = tf.knn_mad_mask_scatter.last_branch
+    branch, n_unc = _branch(rec)
     assert branch in ("fused", "host_f64", "exact_scatter") and n_unc > 0
     assert np.isfinite(radius) and radius > 0
 
@@ -101,9 +112,10 @@ def test_scatter_route_decides_as_the_bruteforce_route(k, monkeypatch):
     brute-force route."""
     cloud, out_idx = _make_cloud(n=3000, seed=2)
     monkeypatch.setattr(tf, "_SCATTER_MIN_POINTS", 1000)
-    tout = tf.remove_outliers_knn(cloud, k=k, threshold=3.0, verbose=False,
-                                  device="cpu")
-    assert tf.knn_mad_mask_scatter.last_branch[0] != "selection"
+    with capture() as rec:
+        tout = tf.remove_outliers_knn(cloud, k=k, threshold=3.0,
+                                      verbose=False, device="cpu")
+    assert _branch(rec)[0] != "selection"
     jout = jf.remove_outliers_knn(JaxCloud(cloud.points, cloud.values), k=k,
                                   threshold=3.0, use_celllist=False,
                                   verbose=False)
@@ -205,10 +217,11 @@ def test_recall_target_matches_jax(recall_target):
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
     jk, jr = jf.knn_mad_mask_scatter(pts, cloud.values, k=8,
                                      recall_target=recall_target)
-    tk, tr = tf.knn_mad_mask_scatter(pts, cloud.values, k=8,
-                                     recall_target=recall_target,
-                                     device="cpu")
-    assert tf.knn_mad_mask_scatter.last_branch == ("selection", len(pts))
+    with capture() as rec:
+        tk, tr = tf.knn_mad_mask_scatter(pts, cloud.values, k=8,
+                                         recall_target=recall_target,
+                                         device="cpu")
+    assert _branch(rec) == ("selection", len(pts))
     np.testing.assert_array_equal(tk, jk)
     assert abs(tr - jr) <= 1e-6 * abs(jr)
 

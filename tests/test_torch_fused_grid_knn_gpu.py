@@ -15,6 +15,7 @@ from ptv_interpolation_tpu_torch.interpolate import (idw_grid_interpolate,
                                                      sibson_grid_interpolate)
 from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
 from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
@@ -62,11 +63,11 @@ def test_fused_kernel_matches_plain_on_gpu(cuda_device, mode, block):
     k = 10
     m2, cand, q, sz, C = _panel(fx.corner_slab(), block, k, cuda_device)
     args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
-    before = tfg._fused_eval.launches
-    got = tfg._fused_eval(*args)
+    with capture() as rec:
+        got = tfg._fused_eval(*args)
     want = tfg._fused_eval_plain(*args)
     torch.cuda.synchronize()
-    assert tfg._fused_eval.launches == before + 1
+    assert rec.counters()["kernel1.launches"] == 1
     assert bool((want[:, :, 3] == 0).any())
     assert torch.equal(got[:, :, 3] == 0, want[:, :, 3] == 0)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
@@ -93,10 +94,10 @@ def test_grid_slice_on_gpu_matches_cpu(cuda_device, cloud, mode):
     entry = sibson_grid_interpolate if mode == "sibson" \
         else idw_grid_interpolate
     kw = dict(k=8, block=(2, 4, 8))
-    before = tfg._fused_eval.launches
-    got = entry(pts, vals, grid, device=cuda_device, **kw)
+    with capture() as rec:
+        got = entry(pts, vals, grid, device=cuda_device, **kw)
     torch.cuda.synchronize()
-    assert tfg._fused_eval.launches >= before + 1
+    assert rec.counters()["kernel1.launches"] >= 1
     assert got.device.type == "cuda"
     want = entry(pts, vals, grid, device="cpu", **kw)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
@@ -109,8 +110,9 @@ def _check_kernel(m2, cand, q, block, sz, k, C, mode):
     n_rows, _, Bt = q[0].shape
     tau2 = torch.empty((n_rows, Bt), device=cand.device)
     args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
-    got = tfg._fused_eval(*args, tau2=tau2)
-    overflow = int(tfg._fused_eval.last_overflow)
+    with capture() as rec:
+        got = tfg._fused_eval(*args, tau2=tau2)
+    overflow = rec.counters()["kernel1.overflow"]
     want = tfg._fused_eval_plain(*args)
     want_tau2 = tfg._fused_tau2_plain(m2, cand, *q, block, sz, k, C)
     torch.cuda.synchronize()

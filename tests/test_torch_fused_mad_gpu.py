@@ -14,9 +14,9 @@ from ptv_interpolation_tpu_torch import filtering as tf
 from ptv_interpolation_tpu_torch.grid import extract_boundary_particles
 from ptv_interpolation_tpu_torch.interpolate import dispatch as td
 from ptv_interpolation_tpu_torch.io import PointCloud
-from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
 from ptv_interpolation_tpu_torch.ops import fused_mad as tfm
 from ptv_interpolation_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from ptv_interpolation_tpu_torch.utils import capture
 
 torch.set_num_threads(2)
 
@@ -62,15 +62,11 @@ def _captured_eval(pts, speed, k, device):
         seen["out"] = orig(*a)
         return seen["out"]
 
-    # the wrapper counts its launches on the module's _mad_eval, which is
-    # grab while it stands in
-    grab.launches = orig.launches
     tfm._mad_eval = grab
     try:
         res = tfm.fused_mad_filter(pts, speed, k, 3.0, want_kth=True,
                                    device=device)
     finally:
-        orig.launches = grab.launches
         tfm._mad_eval = orig
     return res, seen["args"], seen["out"]
 
@@ -81,9 +77,9 @@ def test_mad_kernel_matches_plain_on_gpu(cuda_device, k, coincident):
     """keep|covered identical on every query slot, the corner blocks and
     coincident points included; √τ², med and mad within 1e-6."""
     pts, vals = _cloud(4000, 30, k + coincident, coincident)
-    before = tfm._mad_eval.launches
-    _, args, got = _captured_eval(pts, _speed(vals), k, cuda_device)
-    assert tfm._mad_eval.launches == before + 1
+    with capture() as rec:
+        _, args, got = _captured_eval(pts, _speed(vals), k, cuda_device)
+    assert rec.counters()["kernel2.launches"] == 1
     want = tfm._mad_eval_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 0], want[:, 0])
@@ -118,10 +114,10 @@ def test_knn_mad_mask_scatter_full_parity_on_gpu(cuda_device, k):
     vals[:, 2] += 0.02 * rng.standard_normal(len(vals)).astype(np.float32)
     extreme = int(rng.integers(len(vals)))
     vals[extreme] *= 1e6
-    before = tfm._mad_eval.launches
-    keep, _ = tf.knn_mad_mask_scatter(pts, vals, k=k, threshold=3.0,
-                                      device=cuda_device)
-    assert tfm._mad_eval.launches == before + 1
+    with capture() as rec:
+        keep, _ = tf.knn_mad_mask_scatter(pts, vals, k=k, threshold=3.0,
+                                          device=cuda_device)
+    assert rec.counters()["kernel2.launches"] == 1
     s = _speed(vals.astype(np.float64))
     _, idx = cKDTree(pts.astype(np.float64)).query(pts, k=k + 1)
     neigh = s[idx[:, 1:]]
@@ -167,10 +163,11 @@ def test_pipeline_gpu_matches_cpu(cuda_device, monkeypatch):
                             filter_threshold=4.0, filter_max_speed=5.0,
                             boundary_particles=True, boundary_sampling=3,
                             verbose=False)
-    mad0, grid0 = tfm._mad_eval.launches, tfg._fused_eval.launches
-    g = run_pipeline(config, cloud=PointCloud(pts, vals), mask_raw=fluid,
-                     device=cuda_device)
-    assert tfm._mad_eval.launches > mad0 and tfg._fused_eval.launches > grid0
+    with capture() as rec:
+        g = run_pipeline(config, cloud=PointCloud(pts, vals),
+                         mask_raw=fluid, device=cuda_device)
+    counts = rec.counters()
+    assert counts["kernel2.launches"] > 0 and counts["kernel1.launches"] > 0
     c = run_pipeline(config, cloud=PointCloud(pts, vals), mask_raw=fluid,
                      device="cpu")
     np.testing.assert_array_equal(g.mask, c.mask)
@@ -184,8 +181,9 @@ def _check_mad(args):
     """The kernel against its plain version on ``args``: keep|covered
     identical and rows 1-3 (√τ², med, mad) bit-equal. Returns the number
     of real queries that ran over the whole panel."""
-    got = tfm._mad_eval(*args)
-    overflow = int(tfm._mad_eval.last_overflow)
+    with capture() as rec:
+        got = tfm._mad_eval(*args)
+    overflow = rec.counters()["kernel2.overflow"]
     want = tfm._mad_eval_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 0], want[:, 0])

@@ -19,6 +19,7 @@ from ptv_interpolation_tpu_torch.interpolate import knn_weights as tkw
 from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
 from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
 from ptv_interpolation_tpu_torch.ops import neighbors as tnb
+from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
@@ -125,9 +126,10 @@ def test_streaming_routes_match_jax(route):
         want = jgk.grid_weighted_interpolate(pts, vals, jgrid, K,
                                              _custom_weight, block=BLOCK,
                                              mode="idw")
-        got = tgk.grid_weighted_interpolate(pts, vals, grid, K,
-                                            _custom_weight, block=BLOCK,
-                                            mode="idw", device="cpu")
+        with capture() as rec:
+            got = tgk.grid_weighted_interpolate(pts, vals, grid, K,
+                                                _custom_weight, block=BLOCK,
+                                                mode="idw", device="cpu")
     else:
         if route == "xla":
             kw["backend"] = "xla"
@@ -140,16 +142,23 @@ def test_streaming_routes_match_jax(route):
             jkwargs["cells"] = jcells
             tkwargs["cells"] = fx.carry_cells(jcells)
         want = jkw.sibson_grid_interpolate(pts, vals, jgrid, **jkwargs)
-        before = tfg._fused_eval.launches
-        got = tkw.sibson_grid_interpolate(pts, vals, grid, device="cpu",
-                                          **tkwargs)
-        assert tfg._fused_eval.launches == before == 0
-    stages = tgk.repair_empty_nodes.last_stages
+        with capture() as rec:
+            got = tkw.sibson_grid_interpolate(pts, vals, grid, device="cpu",
+                                              **tkwargs)
+        assert "kernel1.launches" not in rec.counters()
+    stages = _stages(rec)
     assert stages["uncovered"] > 100 and "fused" in stages
     assert got.device.type == "cpu" and got.shape == (n, n, n, 3)
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
+
+
+def _stages(rec):
+    """The repair ladder's counters of a capture, by stage: ``uncovered``
+    and the nodes each stage that ran served."""
+    return {name.split(".", 1)[1]: n for name, n in rec.counters().items()
+            if name.startswith("repair.")}
 
 
 def _widened(s, block=BLOCK):
@@ -274,13 +283,14 @@ def test_celllist_repair_eval_table_form_matches_jax(mode, monkeypatch):
     want = jgk.repair_empty_nodes(
         field, den, s["pts"], s["vals"], s["grid"], K, mode, 2.0,
         cells=jcells, margin=s["margin"], block=BLOCK)
-    got = tgk.repair_empty_nodes(
-        _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
-        s["tgrid"], K, mode, 2.0, cells=tcells, margin=s["margin"],
-        block=BLOCK)
+    with capture() as rec:
+        got = tgk.repair_empty_nodes(
+            _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
+            s["tgrid"], K, mode, 2.0, cells=tcells, margin=s["margin"],
+            block=BLOCK)
     n_unc = int((np.asarray(den) == 0).sum())
     assert len(served) == 1 and served[0] > 100
-    assert tgk.repair_empty_nodes.last_stages == {
+    assert _stages(rec) == {
         "uncovered": n_unc, "celllist": served[0],
         "bruteforce": n_unc - served[0]}
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -314,11 +324,13 @@ def test_ladder_celllist_stage_serves():
             jnp.asarray(field), jnp.asarray(den), s["pts"], s["vals"],
             s["grid"], K, mode, 2.0, cells=s["cells"], margin=s["margin"],
             values_sorted=s["vs"], block=BLOCK)
-        got = tgk.repair_empty_nodes(
-            _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
-            s["tgrid"], K, mode, 2.0, cells=s["tcells"], margin=s["margin"],
-            values_sorted=s["tvs"], block=BLOCK)
-        stages = tgk.repair_empty_nodes.last_stages
+        with capture() as rec:
+            got = tgk.repair_empty_nodes(
+                _torch(field), _torch(den), _torch(s["pts"]),
+                _torch(s["vals"]), s["tgrid"], K, mode, 2.0,
+                cells=s["tcells"], margin=s["margin"],
+                values_sorted=s["tvs"], block=BLOCK)
+        stages = _stages(rec)
         assert stages["uncovered"] == 100
         assert "fused" not in stages and "subset" not in stages
         assert stages["celllist"] > 50
@@ -349,11 +361,12 @@ def test_ladder_subset_stage_serves(evaluator, monkeypatch):
     if evaluator == "streaming":
         monkeypatch.setattr(tfg, "fused_subset_weighted_sum",
                             lambda *a, **kw: None)
-    got = tgk.repair_empty_nodes(
-        _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
-        s["tgrid"], K, "sibson", 2.0, cells=s["tcells"], margin=s["margin"],
-        values_sorted=s["tvs"], block=BLOCK)
-    stages = tgk.repair_empty_nodes.last_stages
+    with capture() as rec:
+        got = tgk.repair_empty_nodes(
+            _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
+            s["tgrid"], K, "sibson", 2.0, cells=s["tcells"],
+            margin=s["margin"], values_sorted=s["tvs"], block=BLOCK)
+    stages = _stages(rec)
     assert stages["uncovered"] == int((np.asarray(den) == 0).sum())
     assert stages["subset"] > 100 and "celllist" not in stages
     assert stages["subset"] + stages.get("bruteforce", 0) == \

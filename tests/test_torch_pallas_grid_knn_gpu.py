@@ -14,9 +14,8 @@ import torch
 from ptv_interpolation_tpu_torch.grid import create_grid
 from ptv_interpolation_tpu_torch.interpolate import (idw_grid_interpolate,
                                                      sibson_grid_interpolate)
-from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
-from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
 from ptv_interpolation_tpu_torch.ops import pallas_grid_knn as tpg
+from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
@@ -54,19 +53,30 @@ def _check(got, want):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
+_LAST = {}
+
+
+def _stages(rec):
+    """The repair ladder's counters of a capture, by stage."""
+    return {name.split(".", 1)[1]: n for name, n in rec.counters().items()
+            if name.startswith("repair.")}
+
+
 def _launch_and_plain(args, k, mode, power, iters=14):
-    before = tpg._pallas_eval.launches
-    got = tpg._pallas_eval(*args, k, mode, power, iters)
+    with capture() as rec:
+        got = tpg._pallas_eval(*args, k, mode, power, iters)
     want = tpg._pallas_eval_plain(*args, k, mode, power, iters)
     torch.cuda.synchronize()
-    assert tpg._pallas_eval.launches == before + 1
+    counts = rec.counters()
+    assert counts["kernel3.launches"] == 1
+    _LAST["overflow"] = counts["kernel3.overflow"]
     return got, want
 
 
 def _overflow(args):
     """Nodes of the last launch that ran over the whole panel, and the
     node count."""
-    return int(tpg._pallas_eval.last_overflow), args[0].shape[0] * 128
+    return _LAST["overflow"], args[0].shape[0] * 128
 
 
 @pytest.mark.parametrize("cloud,mode,power,iters", [
@@ -189,10 +199,11 @@ def test_pallas_route_on_gpu_matches_cpu(cuda_device, entry):
     once and agrees with the plain version's route on the CPU."""
     pts, vals, bounds, n = fx.ragged()
     grid = create_grid(bounds, n)
-    before = tpg._pallas_eval.launches
-    got = entry(pts, vals, grid, k=10, backend="pallas", device=cuda_device)
+    with capture() as rec:
+        got = entry(pts, vals, grid, k=10, backend="pallas",
+                    device=cuda_device)
     torch.cuda.synchronize()
-    assert tpg._pallas_eval.launches == before + 1
+    assert rec.counters()["kernel3.launches"] == 1
     want = entry(pts, vals, grid, k=10, backend="pallas", device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
 
@@ -206,13 +217,15 @@ def test_streaming_and_gather_routes_on_gpu_match_cpu(cuda_device, route):
     kw = dict(k=8, block=(2, 4, 8))
     kw.update(dict(backend="xla") if route == "xla" else
               dict(exact_topk=True))
-    before = tfg._fused_eval.launches
-    got = sibson_grid_interpolate(pts, vals, grid, device=cuda_device, **kw)
+    with capture() as rec:
+        got = sibson_grid_interpolate(pts, vals, grid, device=cuda_device,
+                                      **kw)
     torch.cuda.synchronize()
-    stages = dict(tgk.repair_empty_nodes.last_stages or {})
+    stages = _stages(rec)
     if route == "xla":
-        assert tfg._fused_eval.launches > before
-    want = sibson_grid_interpolate(pts, vals, grid, device="cpu", **kw)
+        assert rec.counters()["kernel1.launches"] > 0
+    with capture() as rec:
+        want = sibson_grid_interpolate(pts, vals, grid, device="cpu", **kw)
     if route == "xla":
-        assert stages == tgk.repair_empty_nodes.last_stages
+        assert stages == _stages(rec)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

@@ -23,7 +23,8 @@ from ptv_interpolation_tpu_torch import filtering as tf
 from ptv_interpolation_tpu_torch.interpolate import dispatch as td
 from ptv_interpolation_tpu_torch.io.csvio import save_ptv_data
 from ptv_interpolation_tpu_torch.pipeline import PipelineConfig, run_pipeline
-from ptv_interpolation_tpu_torch.utils import StageTimings, profiler_trace
+from ptv_interpolation_tpu_torch.utils import (StageTimings, capture,
+                                               profiler_trace)
 
 torch.set_num_threads(2)
 
@@ -140,10 +141,12 @@ def test_fused_routes_decide_as_the_exact_routes(dataset, monkeypatch):
     monkeypatch.setattr(fused_mad, "_mad_eval_plain", count("mad", mad_plain))
     monkeypatch.setattr(fused_grid_knn, "_fused_eval_plain",
                         count("grid", grid_plain))
-    got, got_counts = _run(run_pipeline, _config(PipelineConfig, csv, tif),
-                           device="cpu")
+    with capture() as rec:
+        got, got_counts = _run(run_pipeline,
+                               _config(PipelineConfig, csv, tif),
+                               device="cpu")
     assert calls["mad"] >= 1 and calls["grid"] >= 1
-    assert tf.knn_mad_mask_scatter.last_branch[0] == "exact_scatter"
+    assert rec.counters().get("filter.branch.exact_scatter") == 1
 
     _, exact_counts = _jax_result(csv, tif)
     # every count; the radius is the bisection's (k+1)-th distance there

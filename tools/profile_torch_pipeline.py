@@ -41,7 +41,7 @@ def main():
     from ptv_interpolation_tpu_torch.ops import (fused_grid_knn, fused_mad,
                                                  grid_knn)
     from ptv_interpolation_tpu_torch.pipeline import run_pipeline
-    from ptv_interpolation_tpu_torch.utils import StageTimings
+    from ptv_interpolation_tpu_torch.utils import StageTimings, capture
 
     fluid, pts, vals, _, _ = make_pipeline_problem()
     config = pipeline_config()
@@ -70,7 +70,6 @@ def main():
                 torch.cuda.synchronize()
                 walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
 
-        wrapper.launches = getattr(orig, "launches", 0)
         patches.append((module, name, orig))
         setattr(module, name, wrapper)
 
@@ -109,7 +108,8 @@ def main():
         # the same layers once more without the profiler
         walls.clear()
         nodes.clear()
-        run()
+        with capture() as rec:
+            run()
     finally:
         for module, name, orig in reversed(patches):
             setattr(module, name, orig)
@@ -123,7 +123,7 @@ def main():
           + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items()))
     print(f"repair: uncovered fluid nodes and the fused stage's verdict "
           f"{nodes}; nodes served by each stage of the ladder "
-          f"{grid_knn.repair_empty_nodes.last_stages}")
+          f"{ {k: v for k, v in rec.counters().items() if 'repair' in k} }")
     print(f"{torch.cuda.get_device_name(0)}: wall {wall:.4f} s (profiled), "
           f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall:.1%}, "
           f"idle {1 - busy_us / 1e6 / wall:.1%}")

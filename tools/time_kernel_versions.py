@@ -74,10 +74,19 @@ def _wall(torch, fn, runs=3):
 
 def _time_kernel(torch, cs, res, key, wrapper, args, reps=5):
     """Time ``wrapper(*args)``; record its overflow count where it keeps
-    one, and return one output for the digest."""
+    one (the ``kernel<n>.overflow`` counter, or the ``last_overflow``
+    attribute of trees that predate the counters), and return one output
+    for the digest."""
     res[f"{key}_ms"] = cs._cuda_ms(torch, lambda: wrapper(*args), reps)
-    out = wrapper(*args)
-    ovf = getattr(wrapper, "last_overflow", None)
+    utils = sys.modules.get("ptv_interpolation_tpu_torch.utils")
+    if hasattr(utils, "capture"):
+        with utils.capture() as rec:
+            out = wrapper(*args)
+        ovf = next((n for name, n in rec.counters().items()
+                    if name.endswith(".overflow")), None)
+    else:
+        out = wrapper(*args)
+        ovf = getattr(wrapper, "last_overflow", None)
     res[f"{key}_overflow"] = None if ovf is None else int(ovf)
     return out
 
