@@ -37,18 +37,30 @@
 // few times as it can, and as few d² beyond the margin as it can.
 //
 // Design. One CTA per (block, sub-tile) row, one thread per node. The CTA
-// stages its block's coordinates once in dynamic shared memory as float4
-// (16·C bytes) with the bounding box of every chunk of 32 slots (C bytes).
-// Each thread then makes two passes over the panel and runs everything
-// else on a shortlist of its own:
-//   pass A  d² of every slot, counted against the coverage bound and the
-//           15 midpoints of the first 4 halvings at once: the midpoints are
-//           the same f32 values the sequential loop forms down each branch
-//           (0.5·(lo+hi) with __fmul_rn/__fadd_rn), so walking the tree
-//           with the 16 counts lands on the (lo, hi] the loop reaches after
-//           4 steps, and gives #{d² ≤ hi};
-//   pass B  d² again, writing the slot index (u16) of every slot with
-//           d² ≤ hi, in slot order, to the thread's list in shared memory
+// stages its block's coordinates once in dynamic shared memory as three
+// f32 arrays x, y, z (12·C bytes) with the bounding box of every chunk of
+// 32 slots (C bytes). Threads map to nodes so that each warp takes a
+// 4 × 4 × 2 (x, y, z) brick of the sub-tile where the sub-tile's shape
+// allows (the sub-tile's own order elsewhere). Each warp then lists, once,
+// the slots (u16, in slot order, capacity L planned by the wrapper from the
+// shared memory left over) whose gap to the bounding box of its 32 nodes
+// is within the margin: ~250 of the ~1 630 real candidates at the headline,
+// against ~1 070 in the 32-slot chunks whose boxes lie within the margin
+// of a warp on a 16 × 2 line of nodes (a chunk spans ~1.8 CSR rows, so its
+// box spans the panel's width in x).
+// Each thread makes two passes over its warp's list (all lanes read the
+// same entry: a broadcast) and runs everything else on a shortlist of its
+// own:
+//   pass A  d² of every listed slot, counted against the coverage bound
+//           and the 15 midpoints of the first 4 halvings at once: the
+//           midpoints are the same f32 values the sequential loop forms
+//           down each branch (0.5·(lo+hi) with __fmul_rn/__fadd_rn), so
+//           walking the tree with the 16 counts lands on the (lo, hi] the
+//           loop reaches after 4 steps, and gives #{d² ≤ hi};
+//   pass B  d² again, over the warp's list narrowed (in place, in slot
+//           order) to the slots within the largest hi of its nodes,
+//           writing the slot index (u16) of every slot with d² ≤ hi, in
+//           slot order, to the thread's list in shared memory
 //           (capacity S, planned by the wrapper as k + 32, stored
 //           column-major so that the threads of a warp hit distinct
 //           banks), and the open ones among them (lo < d² ≤ hi; the
@@ -60,18 +72,21 @@
 //           then the sibson statistics and the weighted sums over the
 //           ~k + 5 listed slots instead of C, in slot order as the
 //           all-slot passes summed them before: the values do not change.
-// Both passes skip a chunk whose box lies beyond the bound (margin², then
-// hi) for every node of the warp: the gap to a box, squared and summed in
-// d²'s op order, is never above the d² of a slot inside it, so no slot
-// that could count is skipped; the panel is in cell order, so its chunks
-// are compact and many lie beyond the margin of all of a warp's 32 nodes
-// (the sentinel tail of a block's panel always does). When #{d² ≤ hi} > S
-// (ties, duplicated points, a coarse interval), or the wrapper planned
-// S = 0 because no list fits beside the panel, the thread runs the same
-// steps over all C slots instead — the same result — and adds one to
-// *overflow. Passes over the panel: 2 (and
-// 5 visits of the open slots and 3 of the list), against ~28 before
-// (1 coverage, 24 halvings, 2 statistics, 1 sums).
+// The gap from a slot to a box, squared and summed in d²'s op order, is
+// never above the slot's d² from a node inside the box (rounding is
+// monotone), so the warp's list holds every slot within the margin of
+// any of its nodes and every count is exact. A warp whose list would
+// exceed L (a dense cluster), or every warp where the wrapper planned
+// L = 0, passes over the panel instead, skipping each chunk whose box
+// lies beyond the bound (margin², then hi) for every node of the warp —
+// the same result. When #{d² ≤ hi} > S (ties, duplicated points, a coarse
+// interval), or the wrapper planned S = 0 because no shortlist fits, the
+// thread runs the same steps over its warp's list (or the panel) instead
+// — the same result. Counters: the warps' list lengths, the warps that
+// passed over the panel, the threads without a shortlist. Passes over the
+// list: 2 (and 5 visits of the open slots and 3 of the shortlist),
+// against ~28 over the panel for the sequential steps (1 coverage, 24
+// halvings, 2 statistics, 1 sums).
 //
 // Bit-equal d². The products and sums use __fmul_rn/__fadd_rn/__fsub_rn, so
 // nvcc does not contract them into FMAs; d² and τ² are then bit-equal to the
@@ -89,19 +104,30 @@ constexpr float kEps = 1e-10f;
 constexpr int kMaxV = 5;
 constexpr int kIdw = 0;
 constexpr int kChunk = 32;                  // panel slots per cull box
+constexpr int kWarp = 32;
+constexpr unsigned kAllLanes = 0xffffffffu;
+// the brick of nodes a warp takes: 4 × 4 × 2 (x, y, z)
+constexpr int kBrickX = 4;
+constexpr int kBrickY = 4;
+constexpr int kBrickZ = 2;
 static_assert(kBisectIters % kLevels == 0, "whole tree visits");
+static_assert(kBrickX * kBrickY * kBrickZ == kWarp, "a brick per warp");
+// the counters a launch adds to
+enum Counter { kOverflow = 0, kListSlots = 1, kListOverflow = 2 };
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float4 c) {
-  const float dx = __fsub_rn(qx, c.x);
-  const float dy = __fsub_rn(qy, c.y);
-  const float dz = __fsub_rn(qz, c.z);
+__device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
 
-// The slots a thread visits: n entries of a shortlist at stride `stride`,
-// or, with list == nullptr, every slot 0..n-1 of the panel, in chunks of
+// How far v lies beyond [lo, hi]: max(lo − v, v − hi, 0).
+__device__ __forceinline__ float gap(float v, float lo, float hi) {
+  return fmaxf(fmaxf(__fsub_rn(lo, v), __fsub_rn(v, hi)), 0.0f);
+}
+
+// The slots a thread visits, in slot order: n entries of a list at stride
+// `stride` (a thread's shortlist, or its warp's list at stride 1), or,
+// with list == nullptr, every slot 0..n-1 of the panel, in chunks of
 // kChunk slots with their bounding boxes (lo, hi corners) in `boxes`.
 struct Slots {
   const unsigned short* list;
@@ -118,22 +144,109 @@ struct Slots {
 // order, which rounding (monotone) keeps at or below the d² of every slot
 // inside.
 struct Dist2 {
-  const float4* pts;
+  const float* px;
+  const float* py;
+  const float* pz;
   float qx, qy, qz;
   __device__ __forceinline__ float operator()(int i) const {
-    return sq_dist(qx, qy, qz, pts[i]);
+    return sum_sq(__fsub_rn(qx, px[i]), __fsub_rn(qy, py[i]),
+                  __fsub_rn(qz, pz[i]));
   }
   __device__ __forceinline__ float gap2(float4 lo, float4 hi) const {
-    const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, qx), __fsub_rn(qx, hi.x)),
-                           0.0f);
-    const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, qy), __fsub_rn(qy, hi.y)),
-                           0.0f);
-    const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, qz), __fsub_rn(qz, hi.z)),
-                           0.0f);
-    return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                     __fmul_rn(gz, gz));
+    return sum_sq(gap(qx, lo.x, hi.x), gap(qy, lo.y, hi.y),
+                  gap(qz, lo.z, hi.z));
   }
 };
+
+// Calls f(i, d²) for the slots of `s` in slot order. Over the panel it
+// skips a chunk whose box lies beyond `bound` (by the warp, when all its
+// nodes skip it): no slot in it lies within the bound.
+template <typename F>
+__device__ __forceinline__ void visit(const Slots& s, const Dist2& d2,
+                                      float bound, F&& f) {
+  if (s.list != nullptr) {
+    for (int e = 0; e < s.n; ++e) {
+      const int i = s.at(e);
+      f(i, d2(i));
+    }
+  } else {
+    for (int i0 = 0, ch = 0; i0 < s.n; i0 += kChunk, ++ch) {
+      if (d2.gap2(s.boxes[2 * ch], s.boxes[2 * ch + 1]) > bound) continue;
+      const int i1 = min(i0 + kChunk, s.n);
+      for (int i = i0; i < i1; ++i) f(i, d2(i));
+    }
+  }
+}
+
+// The bounding box of the warp's 32 nodes (lo, hi corners), and the gap
+// beyond it of a staged slot, squared and summed in d²'s op order: never
+// above the slot's d² from any of the nodes. All 32 lanes of the warp
+// call warp_box.
+struct Box {
+  float lo[3];
+  float hi[3];
+  __device__ __forceinline__ float gap2(const Dist2& d2, int i) const {
+    return sum_sq(gap(d2.px[i], lo[0], hi[0]), gap(d2.py[i], lo[1], hi[1]),
+                  gap(d2.pz[i], lo[2], hi[2]));
+  }
+};
+
+__device__ __forceinline__ Box warp_box(const Dist2& d2) {
+  Box b{{d2.qx, d2.qy, d2.qz}, {d2.qx, d2.qy, d2.qz}};
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      b.lo[a] = fminf(b.lo[a], __shfl_xor_sync(kAllLanes, b.lo[a], off));
+      b.hi[a] = fmaxf(b.hi[a], __shfl_xor_sync(kAllLanes, b.hi[a], off));
+    }
+  }
+  return b;
+}
+
+// The warp's list: the slots (u16, in slot order) whose gap to the warp's
+// box is at most m2 — every slot within m2 of one of its nodes. Lanes take
+// 32 consecutive slots per step; a ballot gives each kept slot its place.
+// Returns the count, or -1 where more than L slots qualify. All 32 lanes
+// of the warp call it.
+__device__ __forceinline__ int warp_list(const Dist2& d2, const Box& box,
+                                         int C, float m2,
+                                         unsigned short* list, int L) {
+  const unsigned below = (1u << (threadIdx.x % kWarp)) - 1u;
+  int n = 0;
+  for (int i0 = 0; i0 < C; i0 += kWarp) {
+    const int i = i0 + static_cast<int>(threadIdx.x % kWarp);
+    const bool keep = i < C && box.gap2(d2, i) <= m2;
+    const unsigned mask = __ballot_sync(kAllLanes, keep);
+    const int at = n + __popc(mask & below);
+    if (keep && at < L) list[at] = static_cast<unsigned short>(i);
+    n += __popc(mask);
+    if (n > L) return -1;                   // the same on every lane
+  }
+  __syncwarp();
+  return n;
+}
+
+// Keeps, in place and in slot order, the n entries of the warp's list
+// whose gap to the warp's box is at most `bound`; returns their count.
+// An entry moves only to a place at or before its own, which every lane
+// has read before the ballot. All 32 lanes of the warp call it.
+__device__ __forceinline__ int warp_narrow(const Dist2& d2, const Box& box,
+                                           float bound, unsigned short* list,
+                                           int n) {
+  const unsigned below = (1u << (threadIdx.x % kWarp)) - 1u;
+  int m = 0;
+  for (int e0 = 0; e0 < n; e0 += kWarp) {
+    const int e = e0 + static_cast<int>(threadIdx.x % kWarp);
+    const int i = e < n ? static_cast<int>(list[e]) : 0;
+    const bool keep = e < n && box.gap2(d2, i) <= bound;
+    const unsigned mask = __ballot_sync(kAllLanes, keep);
+    if (keep) list[m + __popc(mask & below)] = static_cast<unsigned short>(i);
+    m += __popc(mask);
+  }
+  __syncwarp();
+  return m;
+}
 
 // Adds one to the count of every tree midpoint t[n] ≥ v. Every midpoint
 // lies at or below hi = t[0]: a d² above it counts nowhere, and the branch
@@ -172,19 +285,7 @@ __device__ __forceinline__ int halve(const Slots& slots, const Dist2& d2,
   int c[kNodes];
 #pragma unroll
   for (int n = 0; n < kNodes; ++n) c[n] = base;
-  if (slots.list != nullptr) {
-    for (int e = 0; e < slots.n; ++e) tally(d2(slots.at(e)), t, c);
-  } else {
-    // a chunk whose box lies beyond hi is skipped whole (by the warp when
-    // all its nodes skip it)
-    for (int i0 = 0, ch = 0; i0 < slots.n; i0 += kChunk, ++ch) {
-      if (d2.gap2(slots.boxes[2 * ch], slots.boxes[2 * ch + 1]) > t[0]) {
-        continue;
-      }
-      const int i1 = min(i0 + kChunk, slots.n);
-      for (int i = i0; i < i1; ++i) tally(d2(i), t, c);
-    }
-  }
+  visit(slots, d2, t[0], [&](int, float v) { tally(v, t, c); });
   // the walk: a child's heap index exceeds its parent's, so one pass over
   // the nodes in heap order meets the path's nodes in turn (constant
   // indices only: the arrays stay in registers)
@@ -206,6 +307,26 @@ __device__ __forceinline__ int halve(const Slots& slots, const Dist2& d2,
   return c[0];
 }
 
+// The node (index in the sub-tile's (tz, ty, tx) order) of thread t: warp
+// w takes brick w of the sub-tile's bricks in (z, y, x) order, lane l the
+// node (l % 4, l / 4 % 4, l / 16) of it, where the sub-tile (sz, sy, sx)
+// divides into bricks; elsewhere the node t.
+__device__ __forceinline__ int node_of(int t, int Bt, int sz, int sy,
+                                       int sx) {
+  if (sz % kBrickZ != 0 || sy % kBrickY != 0 || sx % kBrickX != 0 ||
+      sz * sy * sx != Bt) {
+    return t;
+  }
+  const int w = t / kWarp;
+  const int l = t % kWarp;
+  const int wx = sx / kBrickX;
+  const int wy = sy / kBrickY;
+  const int x = (w % wx) * kBrickX + l % kBrickX;
+  const int y = (w / wx % wy) * kBrickY + l / kBrickX % kBrickY;
+  const int z = (w / (wx * wy)) * kBrickZ + l / (kBrickX * kBrickY);
+  return (z * sy + y) * sx + x;
+}
+
 // kThreads/kMinBlocks bound the registers: 256-thread sub-tiles (the
 // wrapper's usual Bt) get up to 85 registers, so that 3 CTAs share an SM;
 // wider sub-tiles, up to 1 024 threads, get 64.
@@ -214,80 +335,107 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
              const float* __restrict__ qy_all,
              const float* __restrict__ qz_all, float* __restrict__ out,
-             float* __restrict__ tau2_out, int* __restrict__ overflow,
-             int n_blocks, int C, int n_sub, int k, int V, int mode,
-             float power, float m2, int S) {
-  // dynamic shared memory: the panel (C float4: x, y, z, unused), the
-  // chunks' boxes (2 float4 each), then the shortlists
-  extern __shared__ float4 pts[];
+             float* __restrict__ tau2_out,
+             unsigned long long* __restrict__ counts, int n_blocks, int C,
+             int n_sub, int k, int V, int mode, float power, float m2, int S,
+             int L, int sz, int sy, int sx) {
+  // dynamic shared memory: the chunks' boxes (2 float4 each), the panel's
+  // x, y and z (C f32 each), the threads' shortlists, the warps' lists
+  extern __shared__ float4 boxes[];
   const int n_chunks = (C + kChunk - 1) / kChunk;
-  float4* boxes = pts + C;
+  float* px = reinterpret_cast<float*>(boxes + 2 * n_chunks);
+  float* py = px + C;
+  float* pz = py + C;
   const int row = blockIdx.x;
   const int Bt = blockDim.x;
   const int t = threadIdx.x;
+  unsigned short* lists = reinterpret_cast<unsigned short*>(pz + C);
+  unsigned short* warp_lists = lists + S * Bt;
   const long long stride = static_cast<long long>(n_blocks) * C;
   const long long base = static_cast<long long>(row / n_sub) * C;
 
   for (int i = t; i < C; i += Bt) {
-    pts[i] = make_float4(cand[base + i], cand[stride + base + i],
-                         cand[2 * stride + base + i], 0.0f);
+    px[i] = cand[base + i];
+    py[i] = cand[stride + base + i];
+    pz[i] = cand[2 * stride + base + i];
   }
   __syncthreads();
   for (int ch = t; ch < n_chunks; ch += Bt) {
-    float4 lo = pts[ch * kChunk];
+    const int j = ch * kChunk;
+    float4 lo = make_float4(px[j], py[j], pz[j], 0.0f);
     float4 hi = lo;
-    for (int i = ch * kChunk + 1; i < min(ch * kChunk + kChunk, C); ++i) {
-      const float4 p = pts[i];
-      lo = make_float4(fminf(lo.x, p.x), fminf(lo.y, p.y), fminf(lo.z, p.z),
-                       0.0f);
-      hi = make_float4(fmaxf(hi.x, p.x), fmaxf(hi.y, p.y), fmaxf(hi.z, p.z),
-                       0.0f);
+    for (int i = j + 1; i < min(j + kChunk, C); ++i) {
+      lo = make_float4(fminf(lo.x, px[i]), fminf(lo.y, py[i]),
+                       fminf(lo.z, pz[i]), 0.0f);
+      hi = make_float4(fmaxf(hi.x, px[i]), fmaxf(hi.y, py[i]),
+                       fmaxf(hi.z, pz[i]), 0.0f);
     }
     boxes[2 * ch] = lo;
     boxes[2 * ch + 1] = hi;
   }
   __syncthreads();
 
-  const long long q = static_cast<long long>(row) * Bt + t;
-  const Dist2 d2_at{pts, qx_all[q], qy_all[q], qz_all[q]};
+  const int node = node_of(t, Bt, sz, sy, sx);
+  const long long q = static_cast<long long>(row) * Bt + node;
+  const Dist2 d2_at{px, py, pz, qx_all[q], qy_all[q], qz_all[q]};
+
+  // the slots passes A and B visit: the warp's list, or the panel
+  Slots src{nullptr, C, 0, boxes};
+  unsigned short* mine = warp_lists + (t / kWarp) * L;
+  if (L > 0 && Bt % kWarp == 0) {
+    const int n = warp_list(d2_at, warp_box(d2_at), C, m2, mine, L);
+    if (n >= 0) src = Slots{mine, n, 1, nullptr};
+    if (t % kWarp == 0 && counts != nullptr) {
+      if (n >= 0) {
+        atomicAdd(counts + kListSlots, static_cast<unsigned long long>(n));
+      } else {
+        atomicAdd(counts + kListOverflow, 1ull);
+      }
+    }
+  }
 
   // pass A: coverage and the first kLevels halvings
-  const Slots panel{nullptr, C, 0, boxes};
   float lo = 0.0f;
   float hi = m2;
   int n_hi = 0;
-  const bool covered = halve(panel, d2_at, 0, k, lo, hi, n_hi) >= k;
+  const bool covered = halve(src, d2_at, 0, k, lo, hi, n_hi) >= k;
+
+  // what comes next needs only the slots within hi of the node: the
+  // warp's list keeps those within the largest hi of its nodes (the box
+  // is formed again rather than held in registers through pass A)
+  if (src.list != nullptr) {
+    float warp_hi = hi;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      warp_hi = fmaxf(warp_hi, __shfl_xor_sync(kAllLanes, warp_hi, off));
+    }
+    src.n = warp_narrow(d2_at, warp_box(d2_at), warp_hi, mine, src.n);
+  }
 
   // pass B: the shortlist of every slot with d² ≤ hi, in slot order from
   // the list's head; and, in the S − n_hi entries left at its tail, the
   // open ones among them (lo < d² ≤ hi: the settled ones, d² ≤ lo, are
   // selected whatever the later halvings do)
-  Slots listed = panel;
-  Slots open = panel;
+  Slots listed = src;
+  Slots open = src;
   int n_settled = 0;
   if (S > 0 && n_hi <= S) {
-    unsigned short* list =
-        reinterpret_cast<unsigned short*>(boxes + 2 * n_chunks) + t;
+    unsigned short* list = lists + t;
     int n = 0;
     int n_open = 0;
     bool open_fits = true;
-    for (int i0 = 0, ch = 0; i0 < C; i0 += kChunk, ++ch) {
-      if (d2_at.gap2(boxes[2 * ch], boxes[2 * ch + 1]) > hi) continue;
-      const int i1 = min(i0 + kChunk, C);
-      for (int i = i0; i < i1; ++i) {
-        const float d2 = d2_at(i);
-        if (d2 <= hi && n < n_hi) {
-          list[(n++) * Bt] = static_cast<unsigned short>(i);
-          if (d2 > lo) {
-            if (n_open < S - n_hi) {
-              list[(S - 1 - n_open++) * Bt] = static_cast<unsigned short>(i);
-            } else {
-              open_fits = false;
-            }
+    visit(src, d2_at, hi, [&](int i, float d2) {
+      if (d2 <= hi && n < n_hi) {
+        list[(n++) * Bt] = static_cast<unsigned short>(i);
+        if (d2 > lo) {
+          if (n_open < S - n_hi) {
+            list[(S - 1 - n_open++) * Bt] = static_cast<unsigned short>(i);
+          } else {
+            open_fits = false;
           }
         }
       }
-    }
+    });
     listed = Slots{list, n, Bt, nullptr};
     if (open_fits) {
       open = Slots{list + (S - n_open) * Bt, n_open, Bt, nullptr};
@@ -295,8 +443,8 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
     } else {
       open = listed;
     }
-  } else if (overflow != nullptr) {
-    atomicAdd(overflow, 1);
+  } else if (counts != nullptr) {
+    atomicAdd(counts + kOverflow, 1ull);
   }
 
   // the other halvings visit only the open slots (~k/10 at the headline)
@@ -312,25 +460,23 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
     float n_ok = 0.0f;
     float s1 = 0.0f;
     float dmn = 3.4e38f;
-    for (int e = 0; e < listed.n; ++e) {
-      const float d2 = d2_at(listed.at(e));
+    visit(listed, d2_at, tau2, [&](int, float d2) {
       if (d2 <= tau2) {
         const float d = __fsqrt_rn(fmaxf(d2, 0.0f));
         n_ok += 1.0f;
         s1 = __fadd_rn(s1, d);
         dmn = fminf(dmn, d);
       }
-    }
+    });
     n_ok = fmaxf(n_ok, 1.0f);
     const float mean = __fdiv_rn(s1, n_ok);
     float ss = 0.0f;
-    for (int e = 0; e < listed.n; ++e) {
-      const float d2 = d2_at(listed.at(e));
+    visit(listed, d2_at, tau2, [&](int, float d2) {
       if (d2 <= tau2) {
         const float dev = __fsub_rn(__fsqrt_rn(fmaxf(d2, 0.0f)), mean);
         ss = __fadd_rn(ss, __fmul_rn(dev, dev));
       }
-    }
+    });
     std_eps = __fadd_rn(__fsqrt_rn(__fdiv_rn(ss, n_ok)), kEps);
     dmin = dmn > 1e18f ? 0.0f : dmn;
   }
@@ -340,9 +486,7 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
   float num[kMaxV];
 #pragma unroll
   for (int c = 0; c < kMaxV; ++c) num[c] = 0.0f;
-  for (int e = 0; e < listed.n; ++e) {
-    const int i = listed.at(e);
-    const float d2 = d2_at(i);
+  visit(listed, d2_at, tau2, [&](int i, float d2) {
     if (d2 <= tau2) {
       const float d = __fsqrt_rn(fmaxf(d2, 0.0f));
       float w;
@@ -356,13 +500,15 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
       den = __fadd_rn(den, w);
 #pragma unroll
       for (int c = 0; c < kMaxV; ++c) {
-        if (c < V) num[c] = __fadd_rn(num[c], __fmul_rn(w, vals[c * stride + i]));
+        if (c < V) {
+          num[c] = __fadd_rn(num[c], __fmul_rn(w, vals[c * stride + i]));
+        }
       }
     }
-  }
+  });
 
   const float inv_den = __frcp_rn(fmaxf(den, 1e-37f));
-  float* o = out + static_cast<long long>(row) * 8 * Bt + t;
+  float* o = out + static_cast<long long>(row) * 8 * Bt + node;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float v = 0.0f;
@@ -375,25 +521,39 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
   }
 }
 
+size_t shared_bytes(int C, int Bt, int S, int L) {
+  const size_t n_chunks = (static_cast<size_t>(C) + kChunk - 1) / kChunk;
+  const size_t warps = (static_cast<size_t>(Bt) + kWarp - 1) / kWarp;
+  return 2 * n_chunks * sizeof(float4) +
+         3 * static_cast<size_t>(C) * sizeof(float) +
+         (static_cast<size_t>(S) * Bt + static_cast<size_t>(L) * warps) *
+             sizeof(unsigned short);
+}
+
 }  // namespace
 
 // Launches the kernel over n_blocks·n_sub CTAs of Bt threads on `stream`
-// (a cudaStream_t), with 16·C + 32·⌈C/32⌉ + 2·S·Bt bytes of dynamic shared
-// memory (the panel, the chunks' boxes and a u16 shortlist of S entries
-// per thread; S = 0: no lists).
-// tau2 (n_blocks·n_sub·Bt f32) and overflow (one int, incremented once per
-// thread that ran over the whole panel) may be null. Returns the
-// cudaError_t of the launch; 0 is success.
+// (a cudaStream_t), with 32·⌈C/32⌉ + 12·C + 2·S·Bt + 2·L·⌈Bt/32⌉ bytes of
+// dynamic shared memory (the chunks' boxes, the panel, a u16 shortlist of
+// S entries per thread and a u16 list of L entries per warp; S = 0: no
+// shortlists, L = 0: no warp lists). (sz, sy, sx) is the sub-tile's shape
+// in nodes, Bt = sz·sy·sx in the (tz, ty, tx) order of the queries and
+// the output. tau2 (n_blocks·n_sub·Bt f32) and counts (three u64: threads
+// without a shortlist, the slots on the warps' lists, warps that passed
+// over the panel) may be null. Returns the cudaError_t of the launch; 0 is
+// success.
 extern "C" int fused_grid_knn_launch(const float* cand, const float* qx,
                                      const float* qy, const float* qz,
-                                     float* out, float* tau2, int* overflow,
-                                     int n_blocks, int C, int n_sub, int Bt,
-                                     int k, int V, int mode, float power,
-                                     float m2, int S, void* stream) {
-  if (C > 65536 || S < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n_chunks = (static_cast<size_t>(C) + kChunk - 1) / kChunk;
-  const size_t smem = (C + 2 * n_chunks) * sizeof(float4) +
-                      static_cast<size_t>(S) * Bt * sizeof(unsigned short);
+                                     float* out, float* tau2,
+                                     unsigned long long* counts, int n_blocks,
+                                     int C, int n_sub, int Bt, int k, int V,
+                                     int mode, float power, float m2, int S,
+                                     int L, int sz, int sy, int sx,
+                                     void* stream) {
+  if (C > 65536 || S < 0 || L < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = shared_bytes(C, Bt, S, L);
   auto kernel = Bt <= 256 ? fused_kernel<256, 3> : fused_kernel<1024, 1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -401,9 +561,24 @@ extern "C" int fused_grid_knn_launch(const float* cand, const float* qx,
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned n_rows = static_cast<unsigned>(n_blocks) * n_sub;
   kernel<<<n_rows, Bt, smem, static_cast<cudaStream_t>(stream)>>>(
-      cand, qx, qy, qz, out, tau2, overflow, n_blocks, C, n_sub, k, V, mode,
-      power, m2, S);
+      cand, qx, qy, qz, out, tau2, counts, n_blocks, C, n_sub, k, V, mode,
+      power, m2, S, L, sz, sy, sx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The CTAs of Bt threads with the launch's shared memory for (C, S, L)
+// that one SM of the current device holds at once, in *ctas. Returns the
+// cudaError_t; 0 is success.
+extern "C" int fused_grid_knn_ctas_per_sm(int C, int Bt, int S, int L,
+                                          int* ctas) {
+  const size_t smem = shared_bytes(C, Bt, S, L);
+  auto kernel = Bt <= 256 ? fused_kernel<256, 3> : fused_kernel<1024, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, Bt, smem));
 }
 
 extern "C" const char* fused_grid_knn_error_string(int err) {

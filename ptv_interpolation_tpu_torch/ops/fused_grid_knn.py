@@ -44,7 +44,11 @@ _PLAIN_ELEMS = 1 << 26    # bound on (rows × Bt × C) panels of the plain eval
 _MODES = {"idw": 0, "sibson": 1}
 _NBLK_MAX = 4096
 _SMEM_BYTES = 232448      # dynamic shared memory one CTA may use on sm_90
+_SMEM_SM = 233472         # shared memory of one sm_90 SM, of which the
+_SMEM_CTA = 1024          # runtime keeps this much per resident CTA
 _LIST_SLACK = 32          # shortlist entries planned beyond the count target
+_WARP = 32
+_WARP_LIST_MIN = 32       # fewest entries a warp list is planned with
 
 
 # ---------------------------------------------------------------------------
@@ -186,28 +190,62 @@ def _kernel_lib():
     lib = load_library("fused_grid_knn")
     lib.fused_grid_knn_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])
     lib.fused_grid_knn_launch.restype = ctypes.c_int
+    lib.fused_grid_knn_ctas_per_sm.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lib.fused_grid_knn_ctas_per_sm.restype = ctypes.c_int
     lib.fused_grid_knn_error_string.argtypes = [ctypes.c_int]
     lib.fused_grid_knn_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _shortlist_plan(C: int, threads: int, need: int,
-                    boxes: bool = False) -> Tuple[int, int]:
+                    panel: int | None = None) -> Tuple[int, int]:
     """Shared-memory plan of one CTA of the grid or MAD kernel: ``threads``
-    threads over a panel of C slots (16·C bytes, and with ``boxes`` the
-    grid kernel's 32-byte bounding box per 32 slots), whose τ bisection
-    targets a count of ``need`` (k for the grid kernel, k+1 for the MAD
-    kernel). Returns ``(S, bytes)``: S u16 shortlist entries per thread
-    (need + 32), or S = 0 where the lists do not fit beside the panel
-    (every thread then runs over the whole panel), and the dynamic shared
-    memory the launch asks for."""
-    panel = 16 * C + (32 * -(-C // 32) if boxes else 0)
+    threads over a panel of C slots (``panel`` bytes, by default the MAD
+    kernel's 16·C), whose τ bisection targets a count of ``need`` (k for
+    the grid kernel, k+1 for the MAD kernel). Returns ``(S, bytes)``: S
+    u16 shortlist entries per thread (need + 32), or S = 0 where the lists
+    do not fit beside the panel (every thread then runs over the whole
+    panel), and the dynamic shared memory the launch asks for."""
+    panel = 16 * C if panel is None else panel
     S = need + _LIST_SLACK
     if panel + 2 * S * threads > _SMEM_BYTES:
         S = 0
     return S, panel + 2 * S * threads
+
+
+def _kernel1_ctas(threads: int) -> int:
+    """CTAs of ``threads`` threads that one SM holds by registers: the
+    launch bounds give ``fused_kernel<256, 3>`` (``threads`` ≤ 256) 768
+    threads' worth per SM, ``fused_kernel<1024, 1>`` 1 024."""
+    return max(1, (768 if threads <= 256 else 1024) // threads)
+
+
+def _kernel1_plan(C: int, threads: int, k: int) -> Tuple[int, int, int]:
+    """Shared-memory plan of one CTA of kernel 1: ``threads`` threads
+    over a panel of C slots (12·C bytes of x, y, z and a 32-byte bounding
+    box per 32 slots), a shortlist of S entries per thread as
+    :func:`_shortlist_plan` plans it for a count of k, then, in what is
+    left of an SM's shared memory at the CTAs per SM that the rest and
+    the registers allow, a u16 list of L ≤ C entries per warp. L = 0 (no
+    warp lists: every warp passes over the panel) where fewer than
+    ``_WARP_LIST_MIN`` entries fit or the threads do not fill whole warps.
+    Returns ``(S, L, bytes)``, bytes being the dynamic shared memory the
+    launch asks for."""
+    S, base = _shortlist_plan(C, threads, k,
+                              panel=12 * C + 32 * -(-C // 32))
+    if threads % _WARP:
+        return S, 0, base
+    warps = threads // _WARP
+    ctas = min(_kernel1_ctas(threads), _SMEM_SM // (base + _SMEM_CTA))
+    room = min(_SMEM_SM // max(ctas, 1) - _SMEM_CTA, _SMEM_BYTES) - base
+    L = min(room // (2 * warps), C)
+    if L < _WARP_LIST_MIN:
+        L = 0
+    return S, L, base + 2 * L * warps
 
 
 def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
@@ -224,8 +262,10 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
     ``cand`` is the (8, n_blocks·C) panel of :func:`_compact_gather`,
     ``q*_all`` the (n_blocks·n_sub, 1, Bt) rows of :func:`_build_queries`.
     On CUDA tensors this launches the kernel (counters ``kernel1.launches``
-    and ``kernel1.overflow``, a device count of the nodes whose shortlist
-    did not fit and which ran over the whole panel); on CPU tensors it runs
+    and three device counts: ``kernel1.overflow``, the nodes whose
+    shortlist did not fit; ``kernel1.list_slots``, the slots on the
+    warps' lists; ``kernel1.list_overflow``, the warps whose list did not
+    fit and which passed over the panel); on CPU tensors it runs
     :func:`_fused_eval_plain`. Either runs in the span
     ``ptv.grid.kernel1``. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32,
     contiguous, on cand's device) receives every node's τ²."""
@@ -267,30 +307,32 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
             raise ValueError("cand and queries must be contiguous")
         if Bt > 1024:
             raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
-        S, smem = _shortlist_plan(C, Bt, int(k), boxes=True)
+        S, L, smem = _kernel1_plan(C, Bt, int(k))
         if smem > _SMEM_BYTES:
             raise ValueError(f"panel width C={C} exceeds the kernel's shared "
-                             f"memory (17·C bytes ≤ 227 KB)")
+                             f"memory (13·C bytes ≤ 227 KB)")
         lib = _kernel_lib()
         out = torch.empty((n_blocks, n_sub, 8, Bt), dtype=torch.float32,
                           device=cand.device)
         if n_blocks == 0:
             return out
-        overflow = torch.zeros(1, dtype=torch.int32, device=cand.device)
+        counts = torch.zeros(3, dtype=torch.int64, device=cand.device)
         with torch.cuda.device(cand.device):
             stream = torch.cuda.current_stream(cand.device).cuda_stream
             err = lib.fused_grid_knn_launch(
                 cand.data_ptr(), qx_all.data_ptr(), qy_all.data_ptr(),
                 qz_all.data_ptr(), out.data_ptr(),
-                None if tau2 is None else tau2.data_ptr(), overflow.data_ptr(),
+                None if tau2 is None else tau2.data_ptr(), counts.data_ptr(),
                 n_blocks, C, n_sub, Bt, int(k), V, _MODES[mode], float(power),
-                float(m2), S, stream)
+                float(m2), S, L, sz, by, bx, stream)
         if err != 0:
             msg = lib.fused_grid_knn_error_string(err).decode()
             raise RuntimeError(f"fused_grid_knn kernel launch failed: {msg} "
                                f"(cudaError {err})")
         count("kernel1.launches")
-        count("kernel1.overflow", overflow)
+        count("kernel1.overflow", counts[0:1])
+        count("kernel1.list_slots", counts[1:2])
+        count("kernel1.list_overflow", counts[2:3])
         return out
 
 

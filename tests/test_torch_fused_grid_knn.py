@@ -241,21 +241,54 @@ def test_fused_eval_input_checks():
 @pytest.mark.parametrize("C", [128, 1920, 4608, 8192])
 @pytest.mark.parametrize("k", [1, 30, 50, 300])
 def test_shortlist_plan_fits_shared_memory(C, k):
-    """Both kernels' shared-memory plans (256 threads; the grid kernel
-    counts to k and keeps a box per 32 slots, the MAD kernel counts to
-    k+1) stay within the 232 448 bytes a CTA may use, and keep the
-    shortlists wherever they fit."""
-    for need, boxes in ((k, True), (k + 1, False)):
-        S, smem = tfg._shortlist_plan(C, 256, need, boxes=boxes)
-        panel = 16 * C + (C if boxes else 0)     # C is a multiple of 32
+    """Both kernels' shortlist plans (256 threads; the grid kernel counts
+    to k over 12·C bytes of coordinates and a box per 32 slots, the MAD
+    kernel to k+1 over 16·C) stay within the 232 448 bytes a CTA may use,
+    and keep the shortlists wherever they fit."""
+    for need, panel in ((k, 13 * C), (k + 1, 16 * C)):  # C: a multiple of 32
+        if panel == 13 * C:
+            S, L, smem = tfg._kernel1_plan(C, 256, need)
+            smem -= 2 * L * 8
+        else:
+            S, smem = tfg._shortlist_plan(C, 256, need)
         assert smem <= 232448
         assert smem == panel + 2 * S * 256
         fits = panel + 2 * (need + 32) * 256 <= 232448
         assert S == (need + 32 if fits else 0)
-    assert tfg._shortlist_plan(1920, 256, 50, boxes=True) == (
-        82, 17 * 1920 + 41984)
-    assert tfg._shortlist_plan(8192, 256, 300, boxes=True)[0] == 0
+    assert tfg._kernel1_plan(1920, 256, 50) == (
+        82, 616, 13 * 1920 + 41984 + 16 * 616)
+    assert tfg._kernel1_plan(8192, 256, 300)[0] == 0
     assert tfg._shortlist_plan(4608, 256, 31) == (63, 16 * 4608 + 32256)
+
+
+@pytest.mark.parametrize("C", [128, 1920, 3200, 8192])
+@pytest.mark.parametrize("Bt", [64, 96, 128, 256, 512, 1024])
+def test_kernel1_plan_fits_shared_memory(C, Bt):
+    """Kernel 1's plan for C slots and Bt threads: within the 232 448
+    bytes a CTA may use; the warps' lists (L ≤ C entries each, or none)
+    take only what the SM has left at the CTAs per SM that the panel, the
+    shortlists and the registers allow, so they never cost a CTA."""
+    warps = Bt // 32
+    for k in (1, 50, 300):
+        S, L, smem = tfg._kernel1_plan(C, Bt, k)
+        base = 13 * C + 2 * S * Bt
+        assert smem == base + 2 * L * warps <= 232448
+        assert L == 0 or 32 <= L <= C
+        ctas = min(tfg._kernel1_ctas(Bt), 233472 // (base + 1024))
+        assert 233472 // (smem + 1024) >= ctas
+
+
+def test_kernel1_plan_headline_and_no_list():
+    """At the headline's panel (C = 1 920, 256 threads, k = 50) 3 CTAs
+    share an SM, each warp's list holding 616 entries (the warps' lists
+    hold at most ~315); none where no list fits beside the panel and the
+    shortlists, or where the threads fill no whole warp."""
+    S, L, smem = tfg._kernel1_plan(1920, 256, 50)
+    assert (S, L) == (82, 616)
+    assert 233472 // (smem + 1024) == 3
+    assert tfg._kernel1_plan(8192, 256, 214)[:2] == (246, 0)
+    assert tfg._kernel1_plan(1920, 90, 50)[1] == 0
+    assert tfg._kernel1_ctas(256) == 3 and tfg._kernel1_ctas(1024) == 1
 
 
 @pytest.mark.parametrize("block", [(2, 4, 8), (4, 4, 8)])

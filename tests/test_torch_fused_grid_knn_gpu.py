@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_fused_grid_knn_gpu.py``
 (``tests/conftest.py`` imports JAX)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -105,21 +107,24 @@ def test_grid_slice_on_gpu_matches_cpu(cuda_device, cloud, mode):
 
 def _check_kernel(m2, cand, q, block, sz, k, C, mode):
     """The kernel against its plain version: τ² bit-equal, den==0
-    identical, the values within RTOL/ATOL. Returns the number of nodes
-    that ran over the whole panel, and the node count."""
+    identical, the values within RTOL/ATOL. Returns the kernel's counters
+    (``kernel1.overflow``: the nodes without a shortlist;
+    ``kernel1.list_slots`` and ``kernel1.list_overflow``: the slots on the
+    warps' lists and the warps that passed over the panel), and the node
+    count."""
     n_rows, _, Bt = q[0].shape
     tau2 = torch.empty((n_rows, Bt), device=cand.device)
     args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
     with capture() as rec:
         got = tfg._fused_eval(*args, tau2=tau2)
-    overflow = rec.counters()["kernel1.overflow"]
+    counts = rec.counters()
     want = tfg._fused_eval_plain(*args)
     want_tau2 = tfg._fused_tau2_plain(m2, cand, *q, block, sz, k, C)
     torch.cuda.synchronize()
     assert torch.equal(tau2, want_tau2)
     assert torch.equal(got[:, :, 3] == 0, want[:, :, 3] == 0)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    return overflow, n_rows * Bt
+    return counts, n_rows * Bt
 
 
 @pytest.mark.parametrize("mode,k", [("sibson", 10), ("idw", 10),
@@ -128,8 +133,8 @@ def test_fused_kernel_tau2_bit_equal_on_gpu(cuda_device, mode, k):
     """Blocks with uncovered nodes (the corner slab), k = 10 and k = 1."""
     block = (2, 4, 8)
     m2, cand, q, sz, C = _panel(fx.corner_slab(), block, k, cuda_device)
-    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
-    assert overflow < n
+    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert counts["kernel1.overflow"] < n
 
 
 def _duplicated_cloud():
@@ -153,8 +158,8 @@ def test_fused_kernel_overflow_on_duplicates_on_gpu(cuda_device, mode):
     holds: they run over the whole panel with the same result."""
     block, k = (2, 4, 8), 10
     m2, cand, q, sz, C = _panel(_duplicated_cloud(), block, k, cuda_device)
-    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
-    assert 0 < overflow < n
+    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert 0 < counts["kernel1.overflow"] < n
 
 
 @pytest.mark.parametrize("k,block", [(10, (2, 4, 8)), (300, (8, 8, 16))])
@@ -165,9 +170,53 @@ def test_fused_kernel_at_the_panel_cap_on_gpu(cuda_device, k, block):
     C = 8192
     m2, cand, q, sz, _ = _panel(fx.uniform(), block, k, cuda_device, C=C)
     Bt = q[0].shape[2]
-    S = tfg._shortlist_plan(C, Bt, k, boxes=True)[0]
-    overflow, n = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
+    S = tfg._kernel1_plan(C, Bt, k)[0]
+    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
     if k == 300:
-        assert S == 0 and overflow == n
+        assert S == 0 and counts["kernel1.overflow"] == n
     else:
-        assert S == k + 32 and overflow < n
+        assert S == k + 32 and counts["kernel1.overflow"] < n
+
+
+@pytest.mark.parametrize("block", [(2, 4, 8), (4, 4, 8), (4, 8, 16),
+                                   (8, 8, 16), (3, 4, 8), (3, 5, 6)])
+def test_fused_kernel_warp_bricks_on_gpu(cuda_device, block):
+    """Warps on 4 × 4 × 2 bricks of the sub-tiles 2×4×8, 4×4×8 and 2×8×16
+    (blocks (2,4,8), (4,4,8), (4,8,16) and (8,8,16)); the sub-tile's own
+    order at 3×4×8, whose odd depth takes no brick, and at 3×5×6, whose 90
+    threads fill no whole warp (no warp lists). On the uniform cloud every
+    warp's list fits: τ² bit-equal, the values within RTOL/ATOL."""
+    k = 10
+    m2, cand, q, sz, C = _panel(fx.uniform(), block, k, cuda_device)
+    L = tfg._kernel1_plan(C, q[0].shape[2], k)[1]
+    counts, _ = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
+    assert counts["kernel1.list_overflow"] == 0
+    assert (counts["kernel1.list_slots"] > 0) == (L > 0)
+    assert (L > 0) == (block != (3, 5, 6))
+
+
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_fused_kernel_warp_list_overflow_on_gpu(cuda_device, mode):
+    """1 600 points in a 0.5-wide knot: the warps beside it list more
+    slots than the 498 their lists hold and pass over the panel, the
+    others run their lists; the same results."""
+    block, k = (2, 4, 8), 10
+    m2, cand, q, sz, C = _panel(fx.dense_knot(), block, k, cuda_device)
+    assert tfg._kernel1_plan(C, q[0].shape[2], k)[1] == 498
+    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert 0 < counts["kernel1.list_overflow"] < n // 32
+    assert counts["kernel1.list_slots"] > 0
+
+
+@pytest.mark.parametrize("C,Bt,k,ctas", [(1920, 256, 50, 3),
+                                         (3200, 256, 50, 2)])
+def test_kernel1_plan_ctas_on_gpu(cuda_device, C, Bt, k, ctas):
+    """The card holds as many CTAs per SM as the plan counts on: 3 at the
+    headline's panel (C = 1 920), 2 at its repair's (C = 3 200)."""
+    S, L, smem = tfg._kernel1_plan(C, Bt, k)
+    assert tfg._SMEM_SM // (smem + tfg._SMEM_CTA) == ctas
+    got = ctypes.c_int(0)
+    err = tfg._kernel_lib().fused_grid_knn_ctas_per_sm(C, Bt, S, L,
+                                                       ctypes.byref(got))
+    assert err == 0
+    assert got.value == ctas

@@ -29,11 +29,12 @@ times the kernel with CUDA events after a warm-up
 * ``pallas``: kernel 3 (``pallas_grid_knn.cu``) on ``chip_smoke`` phase
   7's slice of 1 024 headline blocks, 5 launches, and on every block, 2
   launches, with a digest of each and, where the checkout's wrapper keeps
-  one, the count of nodes that overflowed their shortlist.
+  one, the count of nodes that overflowed their shortlist (and, for every
+  measure, the kernel's counters where the checkout records them).
 
 Each worker also prints digests of the kernels' outputs (sums and
-uncovered counts), which agree between checkouts whose kernels compute the
-same function. One JSON line per worker goes to standard output, then a
+uncovered counts, and for kernel 1 a SHA-1 of its output's bytes), which
+agree between checkouts whose kernels compute the same function. One JSON line per worker goes to standard output, then a
 table of the times; ``--out FILE`` also writes all the lines to FILE as a
 JSON list.
 """
@@ -72,6 +73,12 @@ def _wall(torch, fn, runs=3):
     return float(np.median(walls)), walls
 
 
+def _sha1(out):
+    """SHA-1 of a kernel's output bytes: equal only where every bit is."""
+    import hashlib
+    return hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
+
+
 def _time_kernel(torch, cs, res, key, wrapper, args, reps=5):
     """Time ``wrapper(*args)``; record its overflow count where it keeps
     one (the ``kernel<n>.overflow`` counter, or the ``last_overflow``
@@ -82,7 +89,9 @@ def _time_kernel(torch, cs, res, key, wrapper, args, reps=5):
     if hasattr(utils, "capture"):
         with utils.capture() as rec:
             out = wrapper(*args)
-        ovf = next((n for name, n in rec.counters().items()
+        counts = rec.counters()
+        res[f"{key}_counters"] = counts
+        ovf = next((n for name, n in counts.items()
                     if name.endswith(".overflow")), None)
     else:
         out = wrapper(*args)
@@ -133,6 +142,7 @@ def worker(tree, measures):
                            args)
         res["grid_headline_digest"] = [float(out[:, :, :3].double().sum()),
                                        int((out[:, :, 3] == 0).sum())]
+        res["grid_headline_sha1"] = _sha1(out)
         del args, out
         res["headline_wall_s"], res["headline_walls"] = _wall(torch, headline)
     if "pallas" in measures:
@@ -172,6 +182,7 @@ def worker(tree, measures):
                            args)
         res["grid_pipeline_digest"] = [float(out[:, :, :3].double().sum()),
                                        int((out[:, :, 3] == 0).sum())]
+        res["grid_pipeline_sha1"] = _sha1(out)
         del out, args
         res["pipeline_wall_s"], res["pipeline_walls"] = _wall(torch, run)
     print(json.dumps(res), flush=True)
