@@ -20,42 +20,59 @@ REPO = BENCH.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-# tiny stand-ins for the two configurations, small enough for the CPU
-TINY = {
-    "porous_glass": {"name": "tiny_glass", "raw_shape_zyx": [40, 34, 30],
-                     "solid_formula": {"rates_zyx": [0.5, 0.6, 0.7],
-                                       "level": 0.55},
-                     "n_tracks": 3000, "boundary_sampling": 5},
-    "uniform256": {"name": "tiny_cube", "n_points": 6000, "extent": 16,
-                   "grid_n": 16, "grid_bounds": [[0, 17], [0, 17], [0, 17]]},
-}
-
-
-def with_pending(manifest):
-    """The manifest with the held-out cells of ``pending.json`` added."""
-    pending = json.loads((BENCH / "pending.json").read_text())
+def with_pending(manifest, bench: Path = BENCH):
+    """The manifest with the held-out cells of ``pending.json`` merged in
+    by name: an entry whose name the manifest already has is not added
+    again, and the cells of a pending metric that the manifest has join
+    that metric's ``workloads``. A held-out cell thus moves in through
+    entries in ``BENCHMARK.json`` alone."""
+    pending = json.loads((bench / "pending.json").read_text())
     out = json.loads(json.dumps(manifest))
     for key in ("configs", "workloads", "end_to_end", "per_layer"):
-        out[key] += pending[key]
+        have = {e["name"]: e for e in out[key]}
+        for entry in pending[key]:
+            mine = have.get(entry["name"])
+            if mine is None:
+                out[key].append(entry)
+            elif "workloads" in mine:
+                mine["workloads"] += [w for w in entry["workloads"]
+                                      if w not in mine["workloads"]]
     return out
 
 
-def make_tiny_checkout(dest: Path) -> Path:
+def tiny_stand_in(bench: Path, config: str) -> dict:
+    """The keys that shrink the configuration ``config`` for the CPU, from
+    ``tests/tiny/<config>.json`` of the benchmark ``bench``: one file per
+    configuration, so a new configuration brings its own."""
+    path = bench / "tests" / "tiny" / f"{config}.json"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"the configuration {config!r} has no tiny stand-in: add "
+            f"perfbench/tests/tiny/{config}.json with the keys that shrink "
+            f"it for the CPU, and a new \"name\"")
+    return json.loads(path.read_text())
+
+
+def make_tiny_checkout(dest: Path, src: Path = REPO,
+                       pending: bool = True) -> Path:
     """``dest`` becomes a checkout holding ``BENCHMARK.json`` and a copy of
-    the benchmark, with the held-out cells added and each configuration
-    swapped for its tiny stand-in."""
-    shutil.copytree(BENCH, dest / "perfbench",
+    the benchmark of the checkout ``src``, with the held-out cells merged
+    in (unless ``pending`` is false) and each configuration swapped for
+    its tiny stand-in."""
+    bench = src / "perfbench"
+    shutil.copytree(bench, dest / "perfbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    manifest = with_pending(json.loads((REPO / "BENCHMARK.json").read_text()))
+    manifest = json.loads((src / "BENCHMARK.json").read_text())
+    if pending:
+        manifest = with_pending(manifest, bench)
+    names = {}
     for c in manifest["configs"]:
-        cfg = json.loads((REPO / c["file"]).read_text())
-        cfg.update(TINY[c["name"]])
+        cfg = json.loads((src / c["file"]).read_text())
+        cfg.update(tiny_stand_in(bench, c["name"]))
         path = f"perfbench/configs/{cfg['name']}.json"
         (dest / path).write_text(json.dumps(cfg, indent=1))
-        c["file"] = path
-    names = {c: TINY[c]["name"] for c in TINY}
-    for c in manifest["configs"]:
-        c["name"] = names[c["name"]]
+        names[c["name"]] = cfg["name"]
+        c["name"], c["file"] = cfg["name"], path
     for w in manifest["workloads"]:
         w["config"] = names[w["config"]]
     (dest / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))

@@ -89,6 +89,11 @@ def test_every_cell_reports_what_it_must(M):
         reported = {n for n, m in e2e.items() if w["name"] in cells_of(m, M)}
         assert "setup_s" in reported and len(reported) >= 2
         assert any(w["name"] in cells_of(m, M) for m in M["per_layer"])
+    for m in M["end_to_end"] + M["per_layer"]:
+        # a list of cells, where given, names at least one, each once
+        listed = cells_of(m, M)
+        assert listed and len(listed) == len(set(listed)), m["name"]
+        assert set(listed) <= cells, m["name"]
     for m in M["per_layer"]:
         assert m["moves"] in e2e
         assert set(cells_of(m, M)) <= cells
@@ -101,27 +106,28 @@ def test_every_cell_reports_what_it_must(M):
 
 
 @pytest.mark.parametrize("M", BOTH, ids=["manifest", "with_pending"])
-def test_every_named_piece_is_a_file(M):
+def test_every_named_piece_is_a_file(M, root=REPO):
+    bench = root / "perfbench"
     for c in M["configs"]:
-        path = REPO / c["file"]
+        path = root / c["file"]
         assert path.is_file() and c["file"].startswith("perfbench/")
         cfg = json.loads(path.read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        assert (BENCH / "generators" / f"{cfg['generator']}.py").is_file()
+        assert (bench / "generators" / f"{cfg['generator']}.py").is_file()
     for w in M["workloads"]:
-        mix = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
+        mix = json.loads((bench / "traffic" / f"{w['traffic']}.json")
                          .read_text())
-        limits = json.loads((BENCH / "limits" / f"{w['name']}.json")
+        limits = json.loads((bench / "limits" / f"{w['name']}.json")
                             .read_text())
         for step in mix["job"]:
-            assert (BENCH / "steps" / f"{step['step']}.py").is_file()
+            assert (bench / "steps" / f"{step['step']}.py").is_file()
         for check in mix["checks"]:
-            assert (BENCH / "checks" / f"{check}.py").is_file()
+            assert (bench / "checks" / f"{check}.py").is_file()
         assert all(isinstance(v, (int, float)) for v in limits.values())
     for m in M["end_to_end"]:
-        assert (BENCH / "endtoend" / f"{m['name']}.py").is_file()
+        assert (bench / "endtoend" / f"{m['name']}.py").is_file()
     for m in M["per_layer"]:
-        assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+        assert (bench / "metrics" / f"{m['name']}.py").is_file()
 
 
 def test_run_seconds_fits_the_full_check():
