@@ -50,43 +50,53 @@
 // box spans the panel's width in x).
 // Each thread makes two passes over its warp's list (all lanes read the
 // same entry: a broadcast) and runs everything else on a shortlist of its
-// own:
-//   pass A  d² of every listed slot, counted against the coverage bound
-//           and the 15 midpoints of the first 4 halvings at once: the
-//           midpoints are the same f32 values the sequential loop forms
-//           down each branch (0.5·(lo+hi) with __fmul_rn/__fadd_rn), so
-//           walking the tree with the 16 counts lands on the (lo, hi] the
-//           loop reaches after 4 steps, and gives #{d² ≤ hi};
+// own. The bisection's outcome rests on one number: #{d² ≤ mid} < k holds
+// exactly where mid < d₍ₖ₎, the k-th smallest d² (ties change nothing), so
+// covered and τ² follow from d₍ₖ₎ and m2 alone:
+//   pass A  d² of every listed slot, counted into 16 buckets over [0, m2]
+//           (min(⌊d²·16/m2⌋, 15) in f32, monotone in d²; u16 counts in the
+//           thread's shortlist area, column-major) and none above m2; a
+//           prefix over the counts gives covered, the bucket b_k that holds
+//           d₍ₖ₎ and the count of every slot in buckets ≤ b_k;
 //   pass B  d² again, over the warp's list narrowed (in place, in slot
-//           order) to the slots within the largest hi of its nodes,
-//           writing the slot index (u16) of every slot with d² ≤ hi, in
-//           slot order, to the thread's list in shared memory
-//           (capacity S, planned by the wrapper as k + 32, stored
-//           column-major so that the threads of a warp hit distinct
-//           banks), and the open ones among them (lo < d² ≤ hi; the
-//           settled ones, d² ≤ lo, are selected whatever comes next) once
-//           more in the entries left at the list's tail;
-//   list    the last 20 halvings (5 more tree visits) over the open slots
-//           only, ~5 at the headline, with the settled ones counted once
-//           (every count is exact: every slot with d² ≤ hi is listed);
-//           then the sibson statistics and the weighted sums over the
-//           ~k + 5 listed slots instead of C, in slot order as the
-//           all-slot passes summed them before: the values do not change.
+//           order) to the slots within the largest bound of its nodes on
+//           τ² (b_k's upper edge and the bisection's last step), writing
+//           the slot index (u16) of every slot of bucket ≤ b_k, in slot
+//           order, to the thread's list in shared memory (capacity S,
+//           planned by the wrapper as k + 32, stored column-major so that
+//           the threads of a warp hit distinct banks), and those of bucket
+//           b_k (the open ones: the others lie below d₍ₖ₎) once more in the
+//           entries left at the list's tail;
+//   list    d₍ₖ₎ by rank among the open slots (~11 at the headline; by
+//           the radix select below where they did not fit at the tail,
+//           as at the repair's wider margin), the 24 halvings replayed on
+//           it as scalars (the same f32 midpoints: τ² bit-equal to the
+//           sequential loop's), then the sibson statistics and the
+//           weighted sums over the ~k + 5 listed slots with d² ≤ τ²
+//           instead of C, in slot order as the all-slot passes summed them
+//           before: the values do not change.
+// τ² lies up to ~3·m2·2⁻²⁴ above d₍ₖ₎; where that crosses into the next
+// bucket (a few nodes in a million), a slot of d² ≤ τ² may lie off the
+// shortlist, and the thread runs the statistics and the sums over its
+// warp's narrowed list (or the panel) instead — the same result.
 // The gap from a slot to a box, squared and summed in d²'s op order, is
 // never above the slot's d² from a node inside the box (rounding is
 // monotone), so the warp's list holds every slot within the margin of
 // any of its nodes and every count is exact. A warp whose list would
 // exceed L (a dense cluster), or every warp where the wrapper planned
 // L = 0, passes over the panel instead, skipping each chunk whose box
-// lies beyond the bound (margin², then hi) for every node of the warp —
-// the same result. When #{d² ≤ hi} > S (ties, duplicated points, a coarse
-// interval), or the wrapper planned S = 0 because no shortlist fits, the
-// thread runs the same steps over its warp's list (or the panel) instead
-// — the same result. Counters: the warps' list lengths, the warps that
-// passed over the panel, the threads without a shortlist. Passes over the
-// list: 2 (and 5 visits of the open slots and 3 of the shortlist),
-// against ~28 over the panel for the sequential steps (1 coverage, 24
-// halvings, 2 statistics, 1 sums).
+// lies beyond the bound for every node of the warp — the same result.
+// When the slots of buckets ≤ b_k number more than S (ties, duplicated
+// points), or the wrapper planned S = 0 because no shortlist fits, the
+// thread finds d₍ₖ₎ among the slots of bucket b_k on its warp's list (or
+// the panel) by a radix select, 4 bits of the f32 pattern a pass (the
+// counts in its shortlist area, or in registers where S = 0), and runs
+// the same steps over that list — the same result. Counters: the warps'
+// list lengths, the warps that passed over the panel, the threads without
+// a shortlist, the threads whose τ² crossed b_k's edge. Passes over the
+// list: 2 (and a rank among the open slots and 3 visits of the
+// shortlist), against ~28 over the panel for the sequential steps (1
+// coverage, 24 halvings, 2 statistics, 1 sums).
 //
 // Bit-equal d². The products and sums use __fmul_rn/__fadd_rn/__fsub_rn, so
 // nvcc does not contract them into FMAs; d² and τ² are then bit-equal to the
@@ -94,12 +104,14 @@
 // choices. Counts are integers. Build without --use_fast_math.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kBisectIters = 24;
-constexpr int kLevels = 4;                  // halvings resolved per visit
-constexpr int kNodes = 1 << kLevels;        // tree heap 1..15; [0] is hi
+constexpr int kBuckets = 16;                // pass A's buckets over [0, m2]
+constexpr int kRadixBits = 4;               // d² bits a radix pass resolves
+static_assert(kBuckets == 1 << kRadixBits, "one set of counts for both");
 constexpr float kEps = 1e-10f;
 constexpr int kMaxV = 5;
 constexpr int kIdw = 0;
@@ -110,10 +122,14 @@ constexpr unsigned kAllLanes = 0xffffffffu;
 constexpr int kBrickX = 4;
 constexpr int kBrickY = 4;
 constexpr int kBrickZ = 2;
-static_assert(kBisectIters % kLevels == 0, "whole tree visits");
 static_assert(kBrickX * kBrickY * kBrickZ == kWarp, "a brick per warp");
 // the counters a launch adds to
-enum Counter { kOverflow = 0, kListSlots = 1, kListOverflow = 2 };
+enum Counter {
+  kOverflow = 0,
+  kListSlots = 1,
+  kListOverflow = 2,
+  kEdgeSpill = 3
+};
 
 __device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
@@ -164,12 +180,19 @@ struct Dist2 {
 template <typename F>
 __device__ __forceinline__ void visit(const Slots& s, const Dist2& d2,
                                       float bound, F&& f) {
-  if (s.list != nullptr) {
-    for (int e = 0; e < s.n; ++e) {
-      const int i = s.at(e);
-      f(i, d2(i));
+  if (s.list != nullptr && s.n > 0) {
+    // the next entry's d² is formed before f runs on this one, so that a
+    // store of f (pass A's counts) does not hold its loads back
+    int i = s.at(0);
+    float v = d2(i);
+    for (int e = 1; e <= s.n; ++e) {
+      const int j = s.at(min(e, s.n - 1));
+      const float w = d2(j);
+      f(i, v);
+      i = j;
+      v = w;
     }
-  } else {
+  } else if (s.list == nullptr) {
     for (int i0 = 0, ch = 0; i0 < s.n; i0 += kChunk, ++ch) {
       if (d2.gap2(s.boxes[2 * ch], s.boxes[2 * ch + 1]) > bound) continue;
       const int i1 = min(i0 + kChunk, s.n);
@@ -248,63 +271,191 @@ __device__ __forceinline__ int warp_narrow(const Dist2& d2, const Box& box,
   return m;
 }
 
-// Adds one to the count of every tree midpoint t[n] ≥ v. Every midpoint
-// lies at or below hi = t[0]: a d² above it counts nowhere, and the branch
-// skips the tally.
-__device__ __forceinline__ void tally(float v, const float (&t)[kNodes],
-                                      int (&c)[kNodes]) {
-  if (v <= t[0]) {
-#pragma unroll
-    for (int n = 0; n < kNodes; ++n) c[n] += (v <= t[n]) ? 1 : 0;
+// Pass A's buckets: d² ≤ m2 goes to min(⌊d²·inv⌋, 15), inv = 16/m2 in
+// f32 (the floor as a round-toward-zero add of 2²³), d² > m2 to kBuckets.
+// Rounding, the floor and the min keep the order, so each bucket holds a
+// range of d² and bucket(v) ≤ bucket(w) wherever v ≤ w.
+struct Buckets {
+  float m2;
+  float inv;
+  __device__ __forceinline__ int of(float v) const {
+    if (v > m2) return kBuckets;
+    const float x = fminf(__fmul_rn(v, inv), kBuckets - 1.0f);
+    return __float_as_int(__fadd_rz(x, 8388608.0f)) - 0x4b000000;
   }
-}
+  // At or above every d² of buckets ≤ b: there v·inv < b + 1 (an f32,
+  // and rounding is monotone), so v < (b + 1)/inv.
+  __device__ __forceinline__ float upper(int b) const {
+    if (b >= kBuckets - 1) return m2;
+    return fminf(__fdiv_ru(static_cast<float>(b + 1), inv), m2);
+  }
+};
 
-// kLevels halvings of [lo, hi] on #{d² ≤ mid} < k from one visit: counts
-// at every midpoint of the halving tree (the midpoints the sequential loop
-// would form down each branch), then the walk down it. `base` slots not
-// visited lie at d² ≤ lo and count at every midpoint. Returns the count at
-// the entry hi; n_hi becomes the count at the exit hi.
-__device__ __forceinline__ int halve(const Slots& slots, const Dist2& d2,
-                                     int base, int k, float& lo, float& hi,
-                                     int& n_hi) {
-  float t[kNodes];
-  float l[kNodes];
-  float h[kNodes];
-  t[0] = hi;
-  l[1] = lo;
-  h[1] = hi;
+// Sixteen counts in the thread's shortlist area: u16 entries, column-major
+// (`stride` = the CTA's threads). A count (here and in RegCounts) never
+// exceeds the slots a thread visits, C ≤ 17 880 where the panel fits in
+// shared memory.
+struct SmemCounts {
+  unsigned short* p;
+  int stride;
+  __device__ __forceinline__ void clear() {
 #pragma unroll
-  for (int n = 1; n < kNodes; ++n) {
-    if (n > 1) {
-      const int p = n >> 1;
-      l[n] = (n & 1) ? t[p] : l[p];
-      h[n] = (n & 1) ? h[p] : t[p];
-    }
-    t[n] = __fmul_rn(0.5f, __fadd_rn(l[n], h[n]));
+    for (int j = 0; j < kBuckets; ++j) p[j * stride] = 0;
   }
-  int c[kNodes];
+  __device__ __forceinline__ void add(int b) { ++p[b * stride]; }
+  __device__ __forceinline__ int get(int j) const { return p[j * stride]; }
+};
+
+// Sixteen counts in registers, two u16 to a register, read with constant
+// indices only: for the selections that have no shared memory to spare.
+struct RegCounts {
+  unsigned c[kBuckets / 2];
+  __device__ __forceinline__ void clear() {
 #pragma unroll
-  for (int n = 0; n < kNodes; ++n) c[n] = base;
-  visit(slots, d2, t[0], [&](int, float v) { tally(v, t, c); });
-  // the walk: a child's heap index exceeds its parent's, so one pass over
-  // the nodes in heap order meets the path's nodes in turn (constant
-  // indices only: the arrays stay in registers)
-  n_hi = c[0];
-  int node = 1;
+    for (int j = 0; j < kBuckets / 2; ++j) c[j] = 0;
+  }
+  __device__ __forceinline__ void add(int b) {
+    const unsigned one = 1u << ((b & 1) * 16);
 #pragma unroll
-  for (int n = 1; n < kNodes; ++n) {
-    if (n == node) {
-      if (c[n] < k) {
-        lo = t[n];
-        node = 2 * n + 1;
+    for (int j = 0; j < kBuckets / 2; ++j) c[j] += (b >> 1 == j) ? one : 0u;
+  }
+  __device__ __forceinline__ int get(int j) const {
+    return static_cast<int>((c[j >> 1] >> ((j & 1) * 16)) & 0xffffu);
+  }
+};
+
+// The bucket that holds the rank-th smallest counted value (kBuckets
+// where fewer are counted), the count below it and its own count.
+struct Pick {
+  int bucket;
+  int below;
+  int in;
+};
+
+template <typename Counts>
+__device__ __forceinline__ Pick pick(const Counts& c, int rank) {
+  Pick p{kBuckets, 0, 0};
+#pragma unroll
+  for (int j = 0; j < kBuckets; ++j) {
+    if (p.bucket == kBuckets) {
+      const int n = c.get(j);
+      if (p.below + n >= rank) {
+        p.bucket = j;
+        p.in = n;
       } else {
-        hi = t[n];
-        n_hi = c[n];
-        node = 2 * n;
+        p.below += n;
       }
     }
   }
-  return c[0];
+  return p;
+}
+
+// Pass A: the slots of `s` counted by bucket, and the bucket of the k-th.
+template <typename Counts>
+__device__ __forceinline__ Pick count_buckets(const Slots& s,
+                                              const Dist2& d2,
+                                              const Buckets& bu, int k,
+                                              Counts& c) {
+  c.clear();
+  visit(s, d2, bu.m2, [&](int, float v) {
+    const int b = bu.of(v);
+    if (b < kBuckets) c.add(b);
+  });
+  return pick(c, k);
+}
+
+// The rank-th smallest d² of bucket bk over the slots of `s` (rank ≤ the
+// bucket's count): over a shortlist whose open slots did not fit at its
+// tail, or over the slots of a thread without a shortlist. One visit
+// finds the bucket's least and greatest d² (one value where they agree:
+// ties, duplicated points), and every d² between them lies in bucket bk;
+// then a radix select over their f32 patterns (which order d² ≥ 0 as the
+// values), kRadixBits a pass from the first bit in which the two differ;
+// where one slot is left before the last pass, one more visit fetches
+// it. Its visits are linear in the slots, whatever their ties.
+template <typename Counts>
+__device__ __forceinline__ float kth_radix(const Slots& s, const Dist2& d2,
+                                           const Buckets& bu, int bk,
+                                           int rank, Counts& c) {
+  const float bound = bu.upper(bk);
+  float lo = CUDART_INF_F;
+  float hi = 0.0f;
+  visit(s, d2, bound, [&](int, float v) {
+    if (bu.of(v) == bk) {
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+    }
+  });
+  if (lo == hi) return lo;
+  const unsigned ulo = __float_as_uint(lo);
+  const int first = 31 - __clz(ulo ^ __float_as_uint(hi));
+  int shift = first / kRadixBits * kRadixBits;
+  unsigned prefix = shift + kRadixBits >= 32
+                        ? 0u
+                        : ulo & (~0u << (shift + kRadixBits));
+  for (; shift >= 0; shift -= kRadixBits) {
+    const unsigned high = shift + kRadixBits >= 32
+                              ? 0u
+                              : ~0u << (shift + kRadixBits);
+    c.clear();
+    visit(s, d2, bound, [&](int, float v) {
+      const unsigned u = __float_as_uint(v);
+      if (v >= lo && v <= hi && (u & high) == prefix) {
+        c.add(static_cast<int>((u >> shift) & (kBuckets - 1u)));
+      }
+    });
+    const Pick p = pick(c, rank);
+    prefix |= static_cast<unsigned>(p.bucket) << shift;
+    rank -= p.below;
+    if (p.in == 1 && shift > 0) {
+      const unsigned mask = ~0u << shift;
+      float kth = CUDART_INF_F;
+      visit(s, d2, bound, [&](int, float v) {
+        if (v >= lo && v <= hi && (__float_as_uint(v) & mask) == prefix) {
+          kth = v;
+        }
+      });
+      return kth;
+    }
+  }
+  return __uint_as_float(prefix);
+}
+
+// The rank-th smallest d² over the slots of `s` and `base` smaller ones
+// off it: the d² of a slot with base + #{< v} < rank ≤ base + #{≤ v}.
+// Quadratic in the slots: for the few open ones of a shortlist.
+__device__ __forceinline__ float kth_ranked(const Slots& s, const Dist2& d2,
+                                            int base, int rank) {
+  for (int a = 0; a < s.n; ++a) {
+    const float va = d2(s.at(a));
+    int less = base;
+    int leq = base;
+    for (int b = 0; b < s.n; ++b) {
+      const float vb = d2(s.at(b));
+      less += (vb < va) ? 1 : 0;
+      leq += (vb <= va) ? 1 : 0;
+    }
+    if (less < rank && rank <= leq) return va;
+  }
+  return CUDART_INF_F;                      // not reached: the list is exact
+}
+
+// τ²: the 24 halvings of [0, m2] on #{d² ≤ mid} < k, that is on mid < dk
+// (+∞ where fewer than k slots lie within m2), with the sequential loop's
+// midpoints in its f32 ops.
+__device__ __forceinline__ float bisect(float dk, float m2) {
+  float lo = 0.0f;
+  float hi = m2;
+#pragma unroll
+  for (int it = 0; it < kBisectIters; ++it) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    if (mid < dk) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return hi;
 }
 
 // The node (index in the sub-tile's (tz, ty, tx) order) of thread t: warp
@@ -394,17 +545,30 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
     }
   }
 
-  // pass A: coverage and the first kLevels halvings
-  float lo = 0.0f;
-  float hi = m2;
-  int n_hi = 0;
-  const bool covered = halve(src, d2_at, 0, k, lo, hi, n_hi) >= k;
+  // pass A: the slots counted by bucket, in the thread's shortlist area
+  // where it has one (pass B overwrites them), and the bucket of d₍ₖ₎
+  const Buckets bu{m2, __fdiv_rn(static_cast<float>(kBuckets), m2)};
+  unsigned short* list = lists + t;
+  const bool shortlist = S >= kBuckets;
+  Pick p;
+  if (shortlist) {
+    SmemCounts c{list, Bt};
+    p = count_buckets(src, d2_at, bu, k, c);
+  } else {
+    RegCounts c;
+    p = count_buckets(src, d2_at, bu, k, c);
+  }
+  const bool covered = p.bucket < kBuckets;
+  const int bk = min(p.bucket, kBuckets - 1);
+  const int n_le = p.below + p.in;          // the slots of buckets ≤ bk
 
-  // what comes next needs only the slots within hi of the node: the
-  // warp's list keeps those within the largest hi of its nodes (the box
-  // is formed again rather than held in registers through pass A)
+  // what comes next needs only the slots within τ² of the node, and τ²
+  // lies less than 3·m2·2⁻²⁴ above d₍ₖ₎ ≤ upper(bk) (each halving's
+  // midpoint is off by at most half an ulp of m2): the warp's list keeps
+  // those within the largest such bound of its nodes (the box is formed
+  // again rather than held in registers through pass A)
   if (src.list != nullptr) {
-    float warp_hi = hi;
+    float warp_hi = __fadd_ru(bu.upper(bk), __fmul_ru(m2, 0x1p-21f));
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1) {
       warp_hi = fmaxf(warp_hi, __shfl_xor_sync(kAllLanes, warp_hi, off));
@@ -412,23 +576,23 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
     src.n = warp_narrow(d2_at, warp_box(d2_at), warp_hi, mine, src.n);
   }
 
-  // pass B: the shortlist of every slot with d² ≤ hi, in slot order from
-  // the list's head; and, in the S − n_hi entries left at its tail, the
-  // open ones among them (lo < d² ≤ hi: the settled ones, d² ≤ lo, are
-  // selected whatever the later halvings do)
+  // pass B: the shortlist of every slot of bucket ≤ bk, in slot order from
+  // the list's head; and, in the S − n_le entries left at its tail, the
+  // open ones (bucket bk: the others lie below d₍ₖ₎); then d₍ₖ₎ among
+  // them, or among the whole shortlist where they do not fit there
   Slots listed = src;
-  Slots open = src;
-  int n_settled = 0;
-  if (S > 0 && n_hi <= S) {
-    unsigned short* list = lists + t;
+  const bool on_shortlist = shortlist && n_le <= S;
+  float dk = CUDART_INF_F;
+  if (on_shortlist) {
     int n = 0;
     int n_open = 0;
     bool open_fits = true;
-    visit(src, d2_at, hi, [&](int i, float d2) {
-      if (d2 <= hi && n < n_hi) {
+    visit(src, d2_at, bu.upper(bk), [&](int i, float d2) {
+      const int b = bu.of(d2);
+      if (b <= bk && n < n_le) {
         list[(n++) * Bt] = static_cast<unsigned short>(i);
-        if (d2 > lo) {
-          if (n_open < S - n_hi) {
+        if (b == bk && covered) {
+          if (n_open < S - n_le) {
             list[(S - 1 - n_open++) * Bt] = static_cast<unsigned short>(i);
           } else {
             open_fits = false;
@@ -437,21 +601,29 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
       }
     });
     listed = Slots{list, n, Bt, nullptr};
-    if (open_fits) {
-      open = Slots{list + (S - n_open) * Bt, n_open, Bt, nullptr};
-      n_settled = n - n_open;
-    } else {
-      open = listed;
+    if (covered && open_fits) {
+      const Slots open{list + (S - n_open) * Bt, n_open, Bt, nullptr};
+      dk = kth_ranked(open, d2_at, p.below, k);
+    } else if (covered) {
+      RegCounts c;
+      dk = kth_radix(listed, d2_at, bu, bk, k - p.below, c);
     }
-  } else if (counts != nullptr) {
-    atomicAdd(counts + kOverflow, 1ull);
+  } else {
+    if (counts != nullptr) atomicAdd(counts + kOverflow, 1ull);
+    if (covered && shortlist) {
+      SmemCounts c{list, Bt};
+      dk = kth_radix(src, d2_at, bu, bk, k - p.below, c);
+    } else if (covered) {
+      RegCounts c;
+      dk = kth_radix(src, d2_at, bu, bk, k - p.below, c);
+    }
   }
-
-  // the other halvings visit only the open slots (~k/10 at the headline)
-  for (int it = kLevels; it < kBisectIters; it += kLevels) {
-    halve(open, d2_at, n_settled, k, lo, hi, n_hi);
+  const float tau2 = bisect(dk, m2);
+  // τ² past bk's edge: a slot of d² ≤ τ² may lie off the shortlist
+  if (on_shortlist && bu.of(tau2) > bk) {
+    listed = src;
+    if (counts != nullptr) atomicAdd(counts + kEdgeSpill, 1ull);
   }
-  const float tau2 = hi;
   if (tau2_out != nullptr) tau2_out[q] = tau2;
 
   float dmin = 0.0f;
@@ -535,12 +707,13 @@ size_t shared_bytes(int C, int Bt, int S, int L) {
 // Launches the kernel over n_blocks·n_sub CTAs of Bt threads on `stream`
 // (a cudaStream_t), with 32·⌈C/32⌉ + 12·C + 2·S·Bt + 2·L·⌈Bt/32⌉ bytes of
 // dynamic shared memory (the chunks' boxes, the panel, a u16 shortlist of
-// S entries per thread and a u16 list of L entries per warp; S = 0: no
+// S entries per thread and a u16 list of L entries per warp; S < 16: no
 // shortlists, L = 0: no warp lists). (sz, sy, sx) is the sub-tile's shape
 // in nodes, Bt = sz·sy·sx in the (tz, ty, tx) order of the queries and
-// the output. tau2 (n_blocks·n_sub·Bt f32) and counts (three u64: threads
+// the output. tau2 (n_blocks·n_sub·Bt f32) and counts (four u64: threads
 // without a shortlist, the slots on the warps' lists, warps that passed
-// over the panel) may be null. Returns the cudaError_t of the launch; 0 is
+// over the panel, threads whose τ² crossed their shortlist's last bucket)
+// may be null. Returns the cudaError_t of the launch; 0 is
 // success.
 extern "C" int fused_grid_knn_launch(const float* cand, const float* qx,
                                      const float* qy, const float* qz,
@@ -550,7 +723,7 @@ extern "C" int fused_grid_knn_launch(const float* cand, const float* qx,
                                      int mode, float power, float m2, int S,
                                      int L, int sz, int sy, int sx,
                                      void* stream) {
-  if (C > 65536 || S < 0 || L < 0) {
+  if (C > 65536 || S < 0 || L < 0 || k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = shared_bytes(C, Bt, S, L);

@@ -262,10 +262,12 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
     ``cand`` is the (8, n_blocks·C) panel of :func:`_compact_gather`,
     ``q*_all`` the (n_blocks·n_sub, 1, Bt) rows of :func:`_build_queries`.
     On CUDA tensors this launches the kernel (counters ``kernel1.launches``
-    and three device counts: ``kernel1.overflow``, the nodes whose
+    and four device counts: ``kernel1.overflow``, the nodes whose
     shortlist did not fit; ``kernel1.list_slots``, the slots on the
     warps' lists; ``kernel1.list_overflow``, the warps whose list did not
-    fit and which passed over the panel); on CPU tensors it runs
+    fit and which passed over the panel; ``kernel1.edge_spill``, the nodes
+    whose τ² lay past the last bucket of their shortlist, which summed
+    over their warp's list instead); on CPU tensors it runs
     :func:`_fused_eval_plain`. Either runs in the span
     ``ptv.grid.kernel1``. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32,
     contiguous, on cand's device) receives every node's τ²."""
@@ -288,6 +290,8 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                              f"float32, got {tuple(q.shape)} {q.dtype}")
         if q.device != cand.device:
             raise ValueError("cand and queries must be on one device")
+    if k < 1:
+        raise ValueError(f"k={k}: need at least one neighbour")
     if tau2 is not None and (
             tau2.dtype != torch.float32 or tuple(tau2.shape) != (
                 n_blocks * n_sub, Bt) or tau2.device != cand.device
@@ -316,7 +320,7 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                           device=cand.device)
         if n_blocks == 0:
             return out
-        counts = torch.zeros(3, dtype=torch.int64, device=cand.device)
+        counts = torch.zeros(4, dtype=torch.int64, device=cand.device)
         with torch.cuda.device(cand.device):
             stream = torch.cuda.current_stream(cand.device).cuda_stream
             err = lib.fused_grid_knn_launch(
@@ -333,6 +337,7 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
         count("kernel1.overflow", counts[0:1])
         count("kernel1.list_slots", counts[1:2])
         count("kernel1.list_overflow", counts[2:3])
+        count("kernel1.edge_spill", counts[3:4])
         return out
 
 

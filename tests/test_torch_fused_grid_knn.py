@@ -232,6 +232,8 @@ def test_fused_eval_input_checks():
                         2.0)
     with pytest.raises(ValueError, match="channels"):
         tfg._fused_eval(1.0, cand, q, q, q, block, sz, 4, 6, C, "idw", 2.0)
+    with pytest.raises(ValueError, match="neighbour"):
+        tfg._fused_eval(1.0, cand, q, q, q, block, sz, 0, 3, C, "idw", 2.0)
     meta = torch.zeros((8, 2 * C), device="meta")
     qm = torch.zeros((2, 1, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -321,3 +323,59 @@ def test_fused_eval_tau2_is_the_bisected_kth_distance(block):
     with pytest.raises(ValueError, match="tau2"):
         tfg._fused_eval(m2, cand, *q, block, s["sz"], k, s["V"], s["C"],
                         "idw", 2.0, tau2=tau2[:, :-1])
+
+
+def _replayed_tau2(m2, d2, k):
+    """τ² from each node's k-th smallest d² alone: the 24 halvings of
+    [0, m2] on mid < d₍ₖ₎ (+∞ where fewer than k lie within m2), in f32
+    ops in kernel 1's order. Returns ``(τ², d₍ₖ₎, covered)``."""
+    covered = (d2 <= float(m2)).sum(dim=-1) >= k
+    kth = torch.where(covered, torch.kthvalue(d2, k, dim=-1).values,
+                      torch.tensor(float("inf")))
+    lo = torch.zeros_like(kth)
+    hi = torch.full_like(kth, float(m2))
+    for _ in range(24):
+        mid = 0.5 * (lo + hi)
+        short = mid < kth
+        lo = torch.where(short, mid, lo)
+        hi = torch.where(short, hi, mid)
+    return hi, kth, covered
+
+
+@pytest.mark.parametrize("cloud,k,m2,case", [
+    ("corner_slab", 1, None, "uncovered"),
+    ("corner_slab", 10, None, "uncovered"),
+    ("corner_slab", 50, None, "uncovered"),
+    ("duplicated", 10, None, "ties"),
+    ("lattice", 10, None, "ties"),
+    ("lattice", 50, None, "ties"),
+    ("lattice", 10, 4.0, "edge"),          # d₍ₖ₎ = 2 = 8·m2/16
+    ("lattice", 10, float(np.nextafter(np.float32(8), np.float32(9))),
+     "spill"),
+])
+def test_tau2_is_the_halvings_replayed_on_the_kth_d2(cloud, k, m2, case):
+    """Kernel 1 finds d₍ₖ₎ and replays the halvings on it: #{d² ≤ mid} < k
+    holds exactly where mid < d₍ₖ₎, so the replay is bit-equal to the
+    plain bisection on every node, covered or not (``uncovered``), where
+    the k-th is tied (``ties``), where it lies on a bucket edge j·m2/16
+    (``edge``), and where τ² falls in a later bucket than d₍ₖ₎
+    (``spill``)."""
+    block = (2, 4, 8)
+    m2_panel, cand, q, sz, C = fx.kernel1_panel(getattr(fx, cloud)(), block,
+                                                k)
+    m2 = m2_panel if m2 is None else np.float32(m2)
+    d2 = fx.kernel1_d2(cand, q, block, sz, C)
+    tau2, kth, covered = _replayed_tau2(m2, d2, k)
+    assert bool(covered.any())
+    if case == "uncovered":
+        assert not bool(covered.all())
+    elif case == "ties":
+        assert bool(((d2 == kth[..., None]).sum(dim=-1) > 1)[covered].any())
+    elif case == "edge":
+        j = torch.round(kth * 16.0 / float(m2))
+        assert bool((kth == j * float(m2) / 16.0)[covered].any())
+    else:
+        later = fx.kernel1_bucket(tau2, m2) > fx.kernel1_bucket(kth, m2)
+        assert bool(later[covered].any())
+    want = tfg._fused_tau2_plain(m2, cand, *q, block, sz, k, C)
+    assert torch.equal(tau2, want)

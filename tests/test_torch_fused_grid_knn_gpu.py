@@ -16,7 +16,6 @@ from ptv_interpolation_tpu_torch.grid import create_grid
 from ptv_interpolation_tpu_torch.interpolate import (idw_grid_interpolate,
                                                      sibson_grid_interpolate)
 from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
-from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
 from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
@@ -37,25 +36,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _panel(cloud, block, k, device, C=None):
-    """The kernel's inputs on ``cloud``; ``C`` widens the panel past the
-    largest block's candidate count (the extra slots are sentinels)."""
-    pts, vals, bounds, n = cloud
-    grid = create_grid(bounds, n)
-    cells, vs, axes, margin, mc, _, _ = tgk._host_setup(
-        pts, vals, grid, k, block, 1.45, cell_divisor=3.0, device=device)
-    C_raw = tfg._panel_width(tfg._block_total_capacity(cells, axes, margin,
-                                                       block, grid.shape, mc))
-    assert C is None or C >= C_raw
-    C = C_raw if C is None else C
-    dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
-    sz = tfg._pick_sz(*block)
-    cand = tfg._compact_gather(cells, vs, axes, margin, block, grid.shape, mc,
-                               C)
-    q = tfg._build_queries(axes, block, dims, sz, device=device)
-    return np.float32(margin * margin), cand, q, sz, C
-
-
 @pytest.mark.parametrize("mode,block", [
     ("sibson", (2, 4, 8)), ("idw", (2, 4, 8)), ("sibson", (4, 4, 8)),
     ("idw", (8, 8, 16)),
@@ -63,7 +43,8 @@ def _panel(cloud, block, k, device, C=None):
 def test_fused_kernel_matches_plain_on_gpu(cuda_device, mode, block):
     """An identical den==0 pattern, floats within rtol 1e-5 / atol 1e-6."""
     k = 10
-    m2, cand, q, sz, C = _panel(fx.corner_slab(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.corner_slab(), block, k,
+                                          cuda_device)
     args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
     with capture() as rec:
         got = tfg._fused_eval(*args)
@@ -77,7 +58,8 @@ def test_fused_kernel_matches_plain_on_gpu(cuda_device, mode, block):
 
 def test_fused_kernel_refuses_non_contiguous_input(cuda_device):
     block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = _panel(fx.uniform(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.uniform(), block, k,
+                                          cuda_device)
     strided = torch.empty((8, 2 * cand.shape[1]), device=cuda_device)[:, ::2]
     strided.copy_(cand)
     with pytest.raises(ValueError, match="contiguous"):
@@ -107,10 +89,12 @@ def test_grid_slice_on_gpu_matches_cpu(cuda_device, cloud, mode):
 
 def _check_kernel(m2, cand, q, block, sz, k, C, mode):
     """The kernel against its plain version: τ² bit-equal, den==0
-    identical, the values within RTOL/ATOL. Returns the kernel's counters
-    (``kernel1.overflow``: the nodes without a shortlist;
-    ``kernel1.list_slots`` and ``kernel1.list_overflow``: the slots on the
-    warps' lists and the warps that passed over the panel), and the node
+    identical, the values within RTOL/ATOL, ``kernel1.edge_spill`` the
+    count of :func:`_edge_spills` (at most that where some nodes have no
+    shortlist). Returns the kernel's counters (``kernel1.overflow``: the
+    nodes without a shortlist; ``kernel1.list_slots`` and
+    ``kernel1.list_overflow``: the slots on the warps' lists and the warps
+    that passed over the panel; ``kernel1.edge_spill``), and the node
     count."""
     n_rows, _, Bt = q[0].shape
     tau2 = torch.empty((n_rows, Bt), device=cand.device)
@@ -124,7 +108,23 @@ def _check_kernel(m2, cand, q, block, sz, k, C, mode):
     assert torch.equal(tau2, want_tau2)
     assert torch.equal(got[:, :, 3] == 0, want[:, :, 3] == 0)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    spills = _edge_spills(m2, cand, q, block, sz, k, C, tau2)
+    if counts["kernel1.overflow"] == 0:
+        assert counts["kernel1.edge_spill"] == spills
+    else:
+        assert counts["kernel1.edge_spill"] <= spills
     return counts, n_rows * Bt
+
+
+def _edge_spills(m2, cand, q, block, sz, k, C, tau2):
+    """The covered nodes whose τ² falls in a later pass-A bucket than
+    their k-th smallest d², so that the kernel sums them over their warp's
+    list instead of their shortlist."""
+    d2 = fx.kernel1_d2(cand, q, block, sz, C)
+    covered = (d2 <= float(m2)).sum(dim=-1) >= k
+    kth = torch.kthvalue(d2, k, dim=-1).values
+    later = fx.kernel1_bucket(tau2, m2) > fx.kernel1_bucket(kth, m2)
+    return int((covered & later).sum())
 
 
 @pytest.mark.parametrize("mode,k", [("sibson", 10), ("idw", 10),
@@ -132,24 +132,10 @@ def _check_kernel(m2, cand, q, block, sz, k, C, mode):
 def test_fused_kernel_tau2_bit_equal_on_gpu(cuda_device, mode, k):
     """Blocks with uncovered nodes (the corner slab), k = 10 and k = 1."""
     block = (2, 4, 8)
-    m2, cand, q, sz, C = _panel(fx.corner_slab(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.corner_slab(), block, k,
+                                          cuda_device)
     counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
     assert counts["kernel1.overflow"] < n
-
-
-def _duplicated_cloud():
-    """A uniform cloud with one point copied 64 times onto a grid node
-    (more than the k + 32 entries a shortlist holds at k = 10; few enough
-    that the kernel's sequential f32 sum of their equal weights stays
-    within RTOL of the plain version's) and a 4³ lattice of points at
-    whole coordinates (tied distances)."""
-    pts, vals, bounds, n = fx.uniform()
-    lattice = np.stack(np.meshgrid(*[np.arange(4, 8)] * 3), -1).reshape(-1, 3)
-    extra = np.concatenate([np.repeat([[12.0, 12.0, 12.0]], 64, 0),
-                            lattice]).astype(np.float32)
-    extra_vals = np.ones((len(extra), 3), np.float32)
-    return (np.concatenate([pts, extra]), np.concatenate([vals, extra_vals]),
-            bounds, n)
 
 
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
@@ -157,9 +143,46 @@ def test_fused_kernel_overflow_on_duplicates_on_gpu(cuda_device, mode):
     """Nodes beside 64 coincident points count more than the shortlist
     holds: they run over the whole panel with the same result."""
     block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = _panel(_duplicated_cloud(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.duplicated(), block, k,
+                                          cuda_device)
     counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
     assert 0 < counts["kernel1.overflow"] < n
+
+
+_M2_SPILL = float(np.nextafter(np.float32(8.0), np.float32(9.0)))
+
+
+@pytest.mark.parametrize("mode,k,m2,path", [
+    ("sibson", 10, _M2_SPILL, "spill"), ("idw", 10, _M2_SPILL, "spill"),
+    ("sibson", 50, 32.0, "beyond_tail"),
+])
+def test_fused_kernel_lattice_ties_on_gpu(cuda_device, mode, k, m2, path):
+    """Whole-coordinate points and nodes (every d² a whole number, tied
+    many times over). ``spill``: at k = 10 and m2 one ulp above 8, 16/m2
+    rounds below 2, so the k-th d², 2, falls in bucket 3, while τ² is the
+    halving grid's point m2/4 just above it, in bucket 4: those nodes pass
+    the edge of their shortlist and sum over their warp's list.
+    ``beyond_tail``: at k = 50 and m2 = 32, d² 4 and 5 share the k-th's
+    bucket, whose 30 open slots do not fit at the shortlist's tail beside
+    its 57 (S = 82): d₍ₖ₎ comes from the radix select over the shortlist.
+    τ² bit-equal, the values within RTOL/ATOL, no node without a
+    shortlist."""
+    block = (2, 4, 8)
+    _, cand, q, sz, C = fx.kernel1_panel(fx.lattice(), block, k,
+                                         cuda_device)
+    m2 = np.float32(m2)
+    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    assert counts["kernel1.overflow"] == 0
+    if path == "spill":
+        assert n // 2 < counts["kernel1.edge_spill"] < n
+    else:
+        S = tfg._kernel1_plan(C, q[0].shape[2], k)[0]
+        d2 = fx.kernel1_d2(cand, q, block, sz, C)
+        b = fx.kernel1_bucket(d2, m2)
+        b_k = fx.kernel1_bucket(torch.kthvalue(d2, k, dim=-1).values, m2)
+        n_le = (b <= b_k[..., None]).sum(dim=-1)
+        n_open = (b == b_k[..., None]).sum(dim=-1)
+        assert int(((n_le <= S) & (n_le + n_open > S)).sum()) > n // 8
 
 
 @pytest.mark.parametrize("k,block", [(10, (2, 4, 8)), (300, (8, 8, 16))])
@@ -168,7 +191,8 @@ def test_fused_kernel_at_the_panel_cap_on_gpu(cuda_device, k, block):
     at k = 300 with 256 threads they do not (S = 0), and every node runs
     over the whole panel."""
     C = 8192
-    m2, cand, q, sz, _ = _panel(fx.uniform(), block, k, cuda_device, C=C)
+    m2, cand, q, sz, _ = fx.kernel1_panel(fx.uniform(), block, k,
+                                          cuda_device, C=C)
     Bt = q[0].shape[2]
     S = tfg._kernel1_plan(C, Bt, k)[0]
     counts, n = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
@@ -187,10 +211,12 @@ def test_fused_kernel_warp_bricks_on_gpu(cuda_device, block):
     threads fill no whole warp (no warp lists). On the uniform cloud every
     warp's list fits: τ² bit-equal, the values within RTOL/ATOL."""
     k = 10
-    m2, cand, q, sz, C = _panel(fx.uniform(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.uniform(), block, k,
+                                          cuda_device)
     L = tfg._kernel1_plan(C, q[0].shape[2], k)[1]
     counts, _ = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
     assert counts["kernel1.list_overflow"] == 0
+    assert counts["kernel1.edge_spill"] == 0
     assert (counts["kernel1.list_slots"] > 0) == (L > 0)
     assert (L > 0) == (block != (3, 5, 6))
 
@@ -201,7 +227,8 @@ def test_fused_kernel_warp_list_overflow_on_gpu(cuda_device, mode):
     slots than the 498 their lists hold and pass over the panel, the
     others run their lists; the same results."""
     block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = _panel(fx.dense_knot(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_panel(fx.dense_knot(), block, k,
+                                          cuda_device)
     assert tfg._kernel1_plan(C, q[0].shape[2], k)[1] == 498
     counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
     assert 0 < counts["kernel1.list_overflow"] < n // 32

@@ -95,6 +95,75 @@ def corner_slab():
     return pts, vals, ((0, n + 1),) * 3, n
 
 
+def duplicated():
+    """A uniform cloud with one point copied 64 times onto a grid node
+    (more than the k + 32 entries a shortlist holds at k = 10; few enough
+    that the kernel's sequential f32 sum of their equal weights stays
+    within rtol 1e-5 of the plain version's) and a 4³ lattice of points
+    at whole coordinates (tied distances)."""
+    pts, vals, bounds, n = uniform()
+    lattice = np.stack(np.meshgrid(*[np.arange(4, 8)] * 3), -1).reshape(-1, 3)
+    extra = np.concatenate([np.repeat([[12.0, 12.0, 12.0]], 64, 0),
+                            lattice]).astype(np.float32)
+    extra_vals = np.ones((len(extra), 3), np.float32)
+    return (np.concatenate([pts, extra]), np.concatenate([vals, extra_vals]),
+            bounds, n)
+
+
+def lattice(n=12):
+    """A point at every whole coordinate of [0, n-1]³ and a grid node on
+    each: the squared distances are whole numbers, tied many times over
+    (at k = 10 the k-th is 2 at every node off the corners)."""
+    ax = np.arange(n, dtype=np.float32)
+    pts = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    vals = np.stack([np.sin(pts[:, 0] * 0.3), np.cos(pts[:, 1] * 0.2),
+                     1.0 + 0.1 * pts[:, 2]], axis=-1).astype(np.float32)
+    return pts, vals, ((0, n),) * 3, n
+
+
+def kernel1_panel(cloud, block, k, device="cpu", C=None):
+    """Kernel 1's inputs on ``cloud`` as the grid path forms them:
+    ``(m2, cand, (qx, qy, qz), sz, C)``. ``C`` widens the panel past the
+    largest block's candidate count (the extra slots are sentinels)."""
+    from ptv_interpolation_tpu_torch.grid import create_grid
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+    from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+    pts, vals, bounds, n = cloud
+    grid = create_grid(bounds, n)
+    cells, vs, axes, margin, mc, _, _ = tgk._host_setup(
+        pts, vals, grid, k, block, 1.45, cell_divisor=3.0, device=device)
+    C_raw = tfg._panel_width(tfg._block_total_capacity(cells, axes, margin,
+                                                       block, grid.shape, mc))
+    assert C is None or C >= C_raw
+    C = C_raw if C is None else C
+    dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
+    sz = tfg._pick_sz(*block)
+    cand = tfg._compact_gather(cells, vs, axes, margin, block, grid.shape, mc,
+                               C)
+    q = tfg._build_queries(axes, block, dims, sz, device=device)
+    return np.float32(margin * margin), cand, q, sz, C
+
+
+def kernel1_d2(cand, q, block, sz, C):
+    """Every node's d² to every slot of its block's panel, (rows, Bt, C)
+    f32, in kernel 1's op order ((dx·dx + dy·dy) + dz·dz)."""
+    n_sub = block[0] // sz
+    panel = cand.view(8, -1, C)[:3].repeat_interleave(n_sub, dim=1)
+    d2 = None
+    for a in range(3):
+        d = q[a].transpose(1, 2) - panel[a][:, None, :]
+        d2 = d * d if d2 is None else d2 + d * d
+    return d2
+
+
+def kernel1_bucket(d2, m2):
+    """Kernel 1's pass-A bucket of each d²: min(⌊d²·inv⌋, 15) with inv =
+    16/m2 rounded to f32, and 16 above m2."""
+    inv = np.float32(16.0) / np.float32(m2)
+    b = (d2 * float(inv)).clamp_max(15.0).floor().long()
+    return b.masked_fill(d2 > float(m2), 16)
+
+
 def odd_anisotropic():
     """The odd-extent, anisotropic cleaning problem of
     ``tests/test_physics.py::test_variational_woodbury_odd_anisotropic``:

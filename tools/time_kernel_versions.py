@@ -19,7 +19,8 @@ times the kernel with CUDA events after a warm-up
 
 * ``grid``: kernel 1 (``fused_grid_knn.cu``) on the headline's main-pass
   panel (``bench.make_problem``: 1M points → 256³, sibson k=50, block
-  (8,8,16)), 5 launches; the headline wall,
+  (8,8,16)) and on its fused repair's panel (the second launch, at 1.6×
+  the margin), 5 launches each; the headline wall,
   ``sibson_grid_interpolate(..., device="cuda")``, median of 3 warm runs;
 * ``mad``: kernel 2 (``fused_mad.cu``) on the production filter panel
   (``chip_smoke``'s production shape, k=30), 5 launches;
@@ -58,6 +59,24 @@ def _chip_smoke():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     return cs
+
+
+def _all_calls(module, name, fn):
+    """The positional arguments of every call that ``fn()`` makes to the
+    kernel wrapper ``module.<name>``, in order."""
+    seen = []
+    orig = getattr(module, name)
+
+    def grab(*a):
+        seen.append(a)
+        return orig(*a)
+
+    setattr(module, name, grab)
+    try:
+        fn()
+    finally:
+        setattr(module, name, orig)
+    return seen
 
 
 def _wall(torch, fn, runs=3):
@@ -137,13 +156,14 @@ def worker(tree, measures):
                                            tau_mode="bisect", block=cs.BLOCK,
                                            device="cuda")
 
-        args = cs._captured(fg, "_fused_eval", headline)
-        out = _time_kernel(torch, cs, res, "grid_headline", fg._fused_eval,
-                           args)
-        res["grid_headline_digest"] = [float(out[:, :, :3].double().sum()),
-                                       int((out[:, :, 3] == 0).sum())]
-        res["grid_headline_sha1"] = _sha1(out)
-        del args, out
+        calls = _all_calls(fg, "_fused_eval", headline)
+        for key, args in zip(("grid_headline", "grid_repair"), calls):
+            out = _time_kernel(torch, cs, res, key, fg._fused_eval, args)
+            res[f"{key}_digest"] = [float(out[:, :, :3].double().sum()),
+                                    int((out[:, :, 3] == 0).sum())]
+            res[f"{key}_sha1"] = _sha1(out)
+            del args, out
+        del calls
         res["headline_wall_s"], res["headline_walls"] = _wall(torch, headline)
     if "pallas" in measures:
         full = cs._captured(pg, "_pallas_eval", lambda: sibson_grid_interpolate(
@@ -206,7 +226,8 @@ def main(trees, measures, out=None):
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump(results, f, indent=1)
-    keys = [k for k in ("grid_headline_ms", "headline_wall_s", "mad_ms",
+    keys = [k for k in ("grid_headline_ms", "grid_repair_ms",
+                        "headline_wall_s", "mad_ms",
                         "grid_pipeline_ms", "pipeline_wall_s",
                         "pallas_slice_ms", "pallas_all_ms")
             if k in results[0]]
