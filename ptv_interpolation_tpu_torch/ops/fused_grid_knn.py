@@ -15,7 +15,9 @@ with like against the JAX package:
   hand-written kernel ``csrc/fused_grid_knn.cu``; on a CPU tensor it runs
   :func:`_fused_eval_plain`, a dense transcription of the same math.
 * **Repair** (:func:`fused_repair`) reruns phase 1 and the same kernel at
-  1.6× the margin over only the blocks that hold uncovered nodes.
+  1.6× the margin over only the blocks that hold uncovered nodes (the
+  streaming subset evaluator where that panel is too wide); its plan
+  (:func:`_repair_plan`) also serves the sharded path's per-slab repair.
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ import torch
 
 from ptv_interpolation_tpu_torch.device import as_f32, resolve_device
 from ptv_interpolation_tpu_torch.grid import Grid
-from ptv_interpolation_tpu_torch.ops.grid_knn import (_block_counts,
-                                                      _block_rows,
-                                                      _host_setup, _pad_axis,
-                                                      repair_empty_nodes)
+from ptv_interpolation_tpu_torch.ops.grid_knn import (
+    _ROW_PAD, _block_counts, _block_rows, _grid_block_weighted_sum_subset,
+    _host_setup, _pad_axis, _row_capacity, repair_empty_nodes)
 from ptv_interpolation_tpu_torch.ops.neighbors import CellList, cell_meta_np
 from ptv_interpolation_tpu_torch.utils import count, span, wait
 
@@ -42,7 +43,7 @@ _BISECT_ITERS = 24
 _CHUNK_ELEMS = 1 << 24    # bound on (blocks × C) index intermediates
 _PLAIN_ELEMS = 1 << 26    # bound on (rows × Bt × C) panels of the plain eval
 _MODES = {"idw": 0, "sibson": 1}
-_NBLK_MAX = 4096
+_NBLK_MAX = 4096          # block ids a slab's repair survey carries
 _SMEM_BYTES = 232448      # dynamic shared memory one CTA may use on sm_90
 _SMEM_SM = 233472         # shared memory of one sm_90 SM, of which the
 _SMEM_CTA = 1024          # runtime keeps this much per resident CTA
@@ -618,11 +619,44 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
 # Repair: the same kernel at a widened margin over the uncovered blocks
 # ---------------------------------------------------------------------------
 
+REPAIR_MARGIN_FACTOR = 1.6   # the repair's margin, in kNN margins
+_REPAIR_PANEL_MAX = 8192     # widest panel the repair runs kernel 1 on
+
+
+def _repair_plan(cells: CellList, grid: Grid, block, margin: float):
+    """The widened-margin repair's geometry, one for the one-device and
+    the sharded repair: ``(margin2, mc2, axes2)``, the margin times
+    :data:`REPAIR_MARGIN_FACTOR`, a block's candidate region at that
+    margin in cells (z, y, x), and the grid's axes padded to the block.
+    A domain corner's k-th neighbour sits at ~2× the bulk k-th radius
+    (only an octant of its neighbourhood exists); 1.6 × the margin of
+    1.45·r_k is ~2.3·r_k."""
+    cell_size = 1.0 / cell_meta_np(cells)[1]
+    margin2 = REPAIR_MARGIN_FACTOR * float(margin)
+    bz, by, bx = block
+    dx, dy, dz = grid.spacing
+    mc2 = tuple(int(math.ceil((ext + 2.0 * margin2) / cell_size)) + 1
+                for ext in (bx * dx, by * dy, bz * dz))[::-1]
+    axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
+             _pad_axis(grid.z, bz))
+    return margin2, mc2, axes2
+
+
+def _repair_void(n_bad, n_fix, B: int):
+    """The void rule, on ints or arrays of them: ``n_fix`` uncovered nodes
+    scattered over ``n_bad`` blocks of ``B`` nodes dwarf the repair
+    population (void-dominated clouds), where certification would fail
+    anyway and the later stages do the work."""
+    return n_bad * B > np.maximum(32 * n_fix, 64 * B)
+
+
 def _repair_survey(den: torch.Tensor, skip, block, dims,
-                   nblk_max: int) -> torch.Tensor:
+                   nblk_max: int):
     """``[n_fix, n_bad, bad_block_ids...]`` as one (2+nblk_max,) int32
-    tensor (ids padded with -1): everything the repair stage must know
-    before it can launch, pulled to the host in one copy."""
+    tensor (ids past ``nblk_max`` cut, the rest padded with -1):
+    everything the repair must know before it can launch, pulled to the
+    host in one copy; and, as a device tensor, the ids of every block
+    that holds an uncovered node, ascending."""
     den_eff = den if skip is None else torch.where(skip, 1.0, den)
     bad = den_eff == 0.0
     bz, by, bx = block
@@ -634,80 +668,60 @@ def _repair_survey(den: torch.Tensor, skip, block, dims,
     blk_bad = badp.reshape(nbz, bz, nby, by, nbx, bx).any(dim=5).any(
         dim=3).any(dim=1)
     with wait("repair.blocks"):
-        ids = torch.nonzero(blk_bad.reshape(-1)).squeeze(1)[:nblk_max]
+        ids = torch.nonzero(blk_bad.reshape(-1)).squeeze(1)
     out = torch.full((2 + nblk_max,), -1, dtype=torch.int32,
                      device=den.device)
     out[0] = bad.sum()
     out[1] = blk_bad.sum()
-    out[2:2 + ids.shape[0]] = ids.to(torch.int32)
-    return out
-
-
-def fused_subset_weighted_sum(cells: CellList, values_sorted, axes,
-                              margin: float, ids_np, k: int,
-                              block: Tuple[int, int, int],
-                              grid_shape: Tuple[int, int, int],
-                              mc: Tuple[int, int, int], mode: str,
-                              power: float, V: int, max_panel: int = 8192):
-    """The fused kernel over only the blocks ``ids_np`` (host int array)
-    at the given, typically widened, ``margin``: returns (n_sel, B, V+1)
-    in ``ids_np`` order, nodes in local (tz, ty, tx) order, with the
-    coverage-sentinel ``den`` in the last column — or None when the
-    compacted panel would exceed ``max_panel`` (the caller then takes the
-    streaming subset evaluator). The repair ladder's subset stage."""
-    bz, by, bx = block
-    C = _panel_width(_block_total_capacity(cells, axes, margin, block,
-                                           grid_shape, mc, ids=ids_np))
-    if C > max_panel:
-        return None
-    nz, ny, nx = grid_shape
-    dims = (_block_counts(nz, bz), _block_counts(ny, by),
-            _block_counts(nx, bx))
-    sz = _pick_sz(bz, by, bx)
-    n_sub = bz // sz
-    ids = torch.as_tensor(ids_np, dtype=torch.int64, device=cells.device)
-    cand = _compact_gather(cells, values_sorted, axes, margin, block,
-                           grid_shape, mc, C, ids=ids)
-    qx, qy, qz = _build_queries(axes, block, dims, sz, ids=ids,
-                                device=cells.device)
-    # margin² formed in f64 and rounded once, as the JAX package forms it
-    out = _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
-                      sz, int(k), V, C, mode, float(power))
-    out = out.reshape(len(ids_np), n_sub, 8, sz, by * bx)
-    out = out.permute(0, 1, 3, 4, 2).reshape(len(ids_np), bz * by * bx, 8)
-    return out[:, :, :V + 1]
+    out[2:2 + min(ids.shape[0], nblk_max)] = ids[:nblk_max].to(torch.int32)
+    return out, ids
 
 
 def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
-                        axes2, margin2: float, ids_np, block, dims, sz: int,
+                        axes2, margin2: float, ids, block, dims, sz: int,
                         k: int, V: int, C: int, mode: str, power: float,
                         grid_shape, mc):
-    """The repair stage: widened-margin panel over the blocks ``ids_np``,
-    the fused kernel, certification (the node was uncovered and is
+    """The repair's evaluation over the blocks ``ids`` (a host array or a
+    device tensor) at the widened margin: kernel 1 on their panel of
+    width ``C`` when it fits :data:`_REPAIR_PANEL_MAX`, else the streaming
+    subset evaluator; then certification (the node was uncovered and is
     covered at the widened margin, ``den2 > 0``) and the scatter of the
-    certified nodes. Returns (field', den', n_repaired); ``den'`` is 1
-    where a node was repaired or skipped."""
+    certified nodes. Returns (field', den', n_repaired), ``den'`` 1 where
+    a node was repaired or skipped — or None when the panel is too wide
+    and no candidate row fits the sorted arrays' padding."""
     bz, by, bx = block
     nz, ny, nx = grid_shape
     nbz, nby, nbx = dims
-    n_sub = bz // sz
     B = bz * by * bx
     dev = den.device
-    ids = torch.as_tensor(ids_np, dtype=torch.int64, device=dev)
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=dev)
     n_sel = ids.shape[0]
     den_eff = den if skip is None else torch.where(skip, 1.0, den)
 
-    with span("ptv.grid.panel"):
-        cand = _compact_gather(cells, values_sorted, axes2, margin2, block,
-                               grid_shape, mc, C, ids=ids)
-        qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids,
-                                    device=dev)
-    # f32 product, as the JAX package forms margin2² on the device
-    m2 = np.float32(margin2) * np.float32(margin2)
-    sub = _fused_eval(m2, cand, qx, qy, qz, block, sz, k, V, C, mode, power)
-    # (n_sel, n_sub, 8, Bt) → (n_sel, B, 8) rows in local (tz, ty, tx) order
-    rows = sub.reshape(n_sel, n_sub, 8, sz, by * bx).permute(0, 1, 3, 4, 2)
-    rows = rows.reshape(n_sel, B, 8)
+    if C <= _REPAIR_PANEL_MAX:
+        with span("ptv.grid.panel"):
+            cand = _compact_gather(cells, values_sorted, axes2, margin2,
+                                   block, grid_shape, mc, C, ids=ids)
+            qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids,
+                                        device=dev)
+        # f32 product, as the JAX package forms margin2² on the device
+        m2 = np.float32(margin2) * np.float32(margin2)
+        sub = _fused_eval(m2, cand, qx, qy, qz, block, sz, k, V, C, mode,
+                          power)
+        # (n_sel, n_sub, 8, Bt) → (n_sel, B, 8) rows in (tz, ty, tx) order
+        rows = sub.reshape(n_sel, bz // sz, 8, sz, by * bx)
+        rows = rows.permute(0, 1, 3, 4, 2).reshape(n_sel, B, 8)
+    else:
+        from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
+            _idw_panel_weights, _sibson_panel_weights)
+        row_len2 = _row_capacity(cells, mc[2])
+        if row_len2 > _ROW_PAD:
+            return None
+        weight_fn = (_idw_panel_weights(power) if mode == "idw"
+                     else _sibson_panel_weights())
+        rows = _grid_block_weighted_sum_subset(
+            cells, values_sorted, axes2, margin2, ids, k, block, grid_shape,
+            mc, row_len2, weight_fn)
     vals_new = rows[..., :V]
     den2 = rows[..., V]
 
@@ -737,48 +751,41 @@ def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
 
 def fused_repair(field, den, skip_mask, cells: CellList, values_sorted,
                  grid: Grid, k: int, mode: str, power: float,
-                 block: Tuple[int, int, int], margin: float,
-                 max_panel: int = 8192):
-    """Repair stage of the fused path. Returns ``(field', den', n_left)``
-    — ``n_left`` nodes stay uncovered at the widened margin (``den'``
-    marks the repaired ones nonzero so the caller can brute-force only
-    the rest) — or ``None`` when this stage does not apply: too many
-    uncovered blocks for the panel budget, or a void-dominated cloud
-    where per-block certification would fail anyway."""
+                 block: Tuple[int, int, int], margin: float):
+    """The widened-margin stage of the repair ladder, over every block
+    that holds an uncovered node (:func:`_repair_plan`,
+    :func:`_fused_repair_apply`). Returns ``(field', den', n_left)`` —
+    ``n_left`` nodes stay uncovered at the widened margin (``den'`` marks
+    the repaired ones nonzero so the caller can brute-force only the
+    rest) — or ``None`` when this stage does not apply: the void rule
+    holds (:func:`_repair_void`), or no evaluator fits the panel. Only
+    the survey's counts reach the host; the block ids stay on the
+    device."""
     nz, ny, nx = grid.shape
     bz, by, bx = block
     dims = (_block_counts(nz, bz), _block_counts(ny, by),
             _block_counts(nx, bx))
     skip = (None if skip_mask is None else
             torch.as_tensor(skip_mask, dtype=torch.bool, device=den.device))
-    survey = _repair_survey(den, skip, block, dims, _NBLK_MAX)
+    survey, ids = _repair_survey(den, skip, block, dims, 0)
     with wait("repair.survey"):
         survey = survey.cpu().numpy()
     n_fix, n_bad = int(survey[0]), int(survey[1])
     if n_fix == 0:
         return field, den, 0
-    B = bz * by * bx
-    if n_bad > _NBLK_MAX or n_bad * B > max(32 * n_fix, 64 * B):
+    if _repair_void(n_bad, n_fix, bz * by * bx):
         return None
-    ids_np = survey[2:2 + n_bad].astype(np.int64)
-
-    cell_size = 1.0 / cell_meta_np(cells)[1]
-    margin2 = 1.6 * float(margin)
-    dx, dy, dz = grid.spacing
-    mc2 = tuple(int(math.ceil((ext + 2.0 * margin2) / cell_size)) + 1
-                for ext in (bx * dx, by * dy, bz * dz))[::-1]
-    axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
-             _pad_axis(grid.z, bz))
+    margin2, mc2, axes2 = _repair_plan(cells, grid, block, margin)
     C = _panel_width(_block_total_capacity(cells, axes2, margin2, block,
-                                           grid.shape, mc2, ids=ids_np,
+                                           grid.shape, mc2, ids=ids,
                                            site="repair.capacity"))
-    if C > max_panel:
+    res = _fused_repair_apply(
+        field, den, skip, cells, values_sorted, axes2, margin2, ids,
+        block, dims, _pick_sz(bz, by, bx), int(k), field.shape[-1], C, mode,
+        float(power), grid.shape, mc2)
+    if res is None:
         return None
-    V = field.shape[-1]
-    field2, den_out, n_rep = _fused_repair_apply(
-        field, den, skip, cells, values_sorted, axes2, margin2, ids_np,
-        block, dims, _pick_sz(bz, by, bx), int(k), V, C, mode, float(power),
-        grid.shape, mc2)
+    field2, den_out, n_rep = res
     return field2, den_out, n_fix - n_rep
 
 

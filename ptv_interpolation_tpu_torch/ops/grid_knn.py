@@ -15,8 +15,7 @@ its nodes against them:
 * :func:`_grid_block_eval` / :func:`grid_knn_apply` — the exact top-k
   gather path that feeds a ``consume_fn`` (``exact_topk=True``);
 * :func:`repair_empty_nodes` — the ladder that recomputes uncovered
-  nodes: the fused repair, the subset stage, the cell-list CSR stage,
-  then brute force;
+  nodes: the fused repair, the cell-list CSR stage, then brute force;
 * :func:`grid_weighted_interpolate` — the entry point that routes between
   the fused kernel (``ops/fused_grid_knn.py``), the one-phase kernel of
   ``backend='pallas'`` (``ops/pallas_grid_knn.py``) and the streaming
@@ -71,17 +70,6 @@ def _pad_axis(ax, b: int) -> np.ndarray:
     step = ax[1] - ax[0] if n_ax > 1 else 1.0
     extra = ax[-1] + step * np.arange(1, target - n_ax + 1)
     return np.concatenate([ax, extra]).astype(np.float32)
-
-
-def _pad_pow2(q: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """Pad query rows to the next power of two, replicating the last row,
-    as the JAX package buckets the repair stages' query counts. Returns
-    the padded rows and the real count."""
-    m = q.shape[0]
-    padded = 1 << max(m - 1, 1).bit_length()
-    if padded > m:
-        q = torch.cat([q, q[-1:].expand(padded - m, 3)])
-    return q, m
 
 
 class RowCapacityError(ValueError):
@@ -413,7 +401,8 @@ def _grid_block_weighted_sum_subset(cells: CellList,
                                     weight_fn: Callable) -> torch.Tensor:
     """The bisect-τ weighted sum over a subset of grid blocks (``ids``:
     flat block indices): returns (n_ids, B, V+1) in ``ids`` order — the
-    repair subset stage's evaluator when the fused one declines."""
+    widened-margin repair's evaluator where kernel 1's panel is too
+    wide."""
     nz, ny, nx = grid_shape
     bz, by, bx = block
     nb = (_block_counts(nz, bz), _block_counts(ny, by),
@@ -524,36 +513,35 @@ def repair_empty_nodes(out, den, points, values, grid: Grid, k: int,
     they arrive with ``den == 0`` (the coverage sentinel) — down a ladder
     of stages, in the JAX package's order:
 
-    1. ``fused_repair``: the fused kernel at 1.6× the margin over the
-       blocks holding uncovered nodes; what it cannot certify goes
-       straight to brute force (step 4);
-    2. when the fused stage declines, the subset stage: the same
-       widened-margin block evaluation through
-       ``fused_subset_weighted_sum``, or the streaming subset evaluator
-       when its panel is too wide — only when the uncovered blocks are
-       few for the nodes (``n_blocks·B ≤ max(32·n_fix, 64·B)``);
-    3. when the subset stage did not run, the cell-list stage: each
-       node's ``(2·rings+1)³`` cell neighbourhood at a guard radius of
+    1. ``fused_repair``: the blocks holding uncovered nodes at 1.6× the
+       margin, through kernel 1 or, where its panel is too wide, the
+       streaming subset evaluator; what it cannot certify goes straight
+       to brute force (step 3). It declines when the uncovered blocks are
+       many for the nodes (``n_blocks·B > max(32·n_fix, 64·B)``), or when
+       neither evaluator fits;
+    2. when it declines, the cell-list stage: each node's
+       ``(2·rings+1)³`` cell neighbourhood at a guard radius of
        ``rings·cell_size`` ≥ 1.6× the margin (``rings ≤ 6`` and at most
        16 384 candidates per node) — τ² bisected over the CSR panel
        (:func:`_celllist_repair_eval_csr`) when ``values_sorted`` is
        given, else the exact k nearest of the generic search
        (:func:`_celllist_repair_eval`, the JAX package's table form);
-    4. exact brute force against the whole cloud for the rest, in chunks
+    3. exact brute force against the whole cloud for the rest, in chunks
        of 131 072 nodes.
 
-    Stages 1–2 need ``cells``, ``margin``, ``values_sorted`` and
-    ``block``; stage 3 ``cells`` and ``margin``. Every cell list of the
-    port serves the table form: the JAX package's dense per-cell table
-    holds the CSR panel's candidates in its slot order. ``out``: (nz, ny,
-    nx, V) and ``den``: (nz, ny, nx) tensors on one device; ``skip_mask`` (True = skip) excludes nodes the
-    caller overwrites anyway. The CUDA device runs the kernels, the CPU
-    their plain versions. Returns the repaired (nz, ny, nx, V) field.
+    Stage 1 needs ``cells``, ``margin``, ``values_sorted`` and ``block``;
+    stage 2 ``cells`` and ``margin``. Every cell list of the port serves
+    the table form: the JAX package's dense per-cell table holds the CSR
+    panel's candidates in its slot order. ``out``: (nz, ny, nx, V) and
+    ``den``: (nz, ny, nx) tensors on one device; ``skip_mask`` (True =
+    skip) excludes nodes the caller overwrites anyway. The CUDA device
+    runs the kernels, the CPU their plain versions. Returns the repaired
+    (nz, ny, nx, V) field.
 
     It runs in the span ``ptv.grid.repair`` and each stage that runs in
     ``ptv.grid.repair.<stage>``; the counter ``repair.uncovered`` counts
     the uncovered nodes and ``repair.<stage>`` the nodes each stage that
-    ran served (``fused``, ``subset``, ``celllist``, ``bruteforce``)."""
+    ran served (``fused``, ``celllist``, ``bruteforce``)."""
     with span("ptv.grid.repair"):
         return _repair_ladder(out, den, points, values, grid, k, mode, power,
                               cells, margin, skip_mask, values_sorted, block)
@@ -563,6 +551,7 @@ def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
                    power: float, cells, margin, skip_mask, values_sorted,
                    block):
     """The body of :func:`repair_empty_nodes`."""
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
     dev = out.device
     skip = (None if skip_mask is None else
             torch.as_tensor(skip_mask, dtype=torch.bool, device=dev))
@@ -579,13 +568,11 @@ def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
     if flat.numel() == 0:
         return out
     ladder = cells is not None and margin is not None
-    shared = ladder and block is not None and values_sorted is not None
-    if shared:
-        from ptv_interpolation_tpu_torch.ops import fused_grid_knn
+    if ladder and block is not None and values_sorted is not None:
         with span("ptv.grid.repair.fused"):
-            res = fused_grid_knn.fused_repair(
-                out, den, skip_mask, cells, values_sorted, grid, k, mode,
-                power, tuple(block), float(margin))
+            res = fg.fused_repair(out, den, skip_mask, cells, values_sorted,
+                                  grid, k, mode, power, tuple(block),
+                                  float(margin))
         if res is not None:
             out, den, n_left = res
             count("repair.fused", flat.numel() - n_left)
@@ -593,7 +580,7 @@ def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
                 return out
             # the widened margin could not certify these: brute force
             flat = uncovered(den)
-            ladder = shared = False
+            ladder = False
 
     n_fix = flat.numel()
     nz, ny, nx = den.shape
@@ -605,40 +592,26 @@ def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
     kk = min(k, int(points.shape[0]))
     fixed = out.new_empty((n_fix, V))
     todo = torch.arange(n_fix, device=dev)
-    ran_subset = False
 
-    if shared:
-        with span("ptv.grid.repair.subset"):
-            sub = _repair_subset_stage(cells, values_sorted, grid, kk, mode,
-                                       power, tuple(block), float(margin),
-                                       (iz, iy, ix), n_fix, V)
-            if sub is not None:
-                good, vals_sub = sub
-                fixed[good] = vals_sub[good]
-                todo = todo[~good]
-                count("repair.subset", good.sum())
-                ran_subset = True
-
-    if ladder and not ran_subset and todo.numel():
+    if ladder:
         cell_size = 1.0 / cell_meta_np(cells)[1]
-        rings = int(math.ceil(1.6 * float(margin) / cell_size))
+        rings = int(math.ceil(fg.REPAIR_MARGIN_FACTOR * float(margin)
+                              / cell_size))
         n_cand = (2 * rings + 1) ** 3 * cells.cap
         # a per-node panel of n_cand candidates, bounded as the JAX
         # package bounds it; bigger neighbourhoods go to brute force,
         # which streams the points instead
         if rings <= 6 and n_cand <= 16384:
             with span("ptv.grid.repair.celllist"):
-                qp, m = _pad_pow2(queries)
                 if values_sorted is not None:
                     vals_cl, good = _celllist_repair_eval_csr(
-                        cells, values_sorted, qp, kk, rings, mode,
+                        cells, values_sorted, queries, kk, rings, mode,
                         float(power), rings * cell_size, query_tile=256)
                 else:
                     vals_cl, good = _celllist_repair_eval(
-                        cells, as_f32(values, dev), qp, kk, rings, mode,
+                        cells, as_f32(values, dev), queries, kk, rings, mode,
                         float(power), rings * cell_size, query_tile=256)
-                good = good[:m]
-                fixed[good] = vals_cl[:m][good]
+                fixed[good] = vals_cl[good]
                 todo = todo[~good]
                 count("repair.celllist", good.sum())
 
@@ -653,7 +626,7 @@ def _repair_ladder(out, den, points, values, grid: Grid, k: int, mode: str,
 
 def _repair_bruteforce(points, values, queries, todo, fixed, kk: int,
                        mode: str, power: float, n_nodes: int, dev):
-    """Stage 4 of :func:`repair_empty_nodes`: exact brute force for the
+    """Stage 3 of :func:`repair_empty_nodes`: exact brute force for the
     nodes ``todo``, written into ``fixed``."""
     with span("ptv.grid.repair.bruteforce"):
         if todo.numel() > 0.01 * n_nodes:
@@ -665,67 +638,14 @@ def _repair_bruteforce(points, values, queries, todo, fixed, kk: int,
             idw_interpolate, sibson_interpolate)
         for s in range(0, todo.numel(), _BRUTE_CHUNK):
             sel = todo[s:s + _BRUTE_CHUNK]
-            qc, m = _pad_pow2(queries[sel])
             if mode == "idw":
-                part = idw_interpolate(points, values, qc, k=kk, power=power,
-                                       device=dev)
+                part = idw_interpolate(points, values, queries[sel], k=kk,
+                                       power=power, device=dev)
             else:
-                part = sibson_interpolate(points, values, qc, k=kk,
+                part = sibson_interpolate(points, values, queries[sel], k=kk,
                                           device=dev)
-            fixed[sel] = part[:m]
+            fixed[sel] = part
         count("repair.bruteforce", todo.numel())
-
-
-def _repair_subset_stage(cells: CellList, values_sorted, grid: Grid, kk: int,
-                         mode: str, power: float,
-                         block: Tuple[int, int, int], margin: float, nodes,
-                         n_fix: int, V: int):
-    """Stage 2 of :func:`repair_empty_nodes`: the widened-margin (1.6×)
-    block evaluation over the blocks holding the uncovered ``nodes``
-    ((iz, iy, ix) index tensors). Returns ``(good, vals)`` per node — good
-    where the widened coverage sentinel certifies it — or None when the
-    stage does not apply (too many blocks for the nodes, or no evaluator
-    fits the panel)."""
-    from ptv_interpolation_tpu_torch.interpolate.knn_weights import (
-        _idw_panel_weights, _sibson_panel_weights)
-    from ptv_interpolation_tpu_torch.ops import fused_grid_knn
-    iz, iy, ix = nodes
-    bz, by, bx = block
-    nzs, nys, nxs = grid.shape
-    nby, nbx = _block_counts(nys, by), _block_counts(nxs, bx)
-    blk = ((iz // bz) * nby + (iy // by)) * nbx + (ix // bx)
-    uniq, inv = torch.unique(blk, return_inverse=True)
-    B = bz * by * bx
-    # void-dominated clouds scatter uncovered nodes over most blocks:
-    # certification would fail there anyway and brute force does the work
-    if uniq.numel() * B > max(32 * n_fix, 64 * B):
-        return None
-    cell_size = 1.0 / cell_meta_np(cells)[1]
-    margin2 = 1.6 * margin
-    dx, dy, dz = grid.spacing
-    mc2 = tuple(int(math.ceil((ext + 2.0 * margin2) / cell_size)) + 1
-                for ext in (bx * dx, by * dy, bz * dz))[::-1]
-    axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
-             _pad_axis(grid.z, bz))
-    uniq_np = uniq.cpu().numpy()
-    rows = fused_grid_knn.fused_subset_weighted_sum(
-        cells, values_sorted, axes2, margin2, uniq_np, kk, block, grid.shape,
-        mc2, mode, power, V)
-    if rows is None:
-        row_len2 = _row_capacity(cells, mc2[2])
-        if row_len2 > _ROW_PAD:
-            return None
-        weight_fn = (_idw_panel_weights(power) if mode == "idw"
-                     else _sibson_panel_weights())
-        n_pad = 1 << max(len(uniq_np) - 1, 1).bit_length()
-        ids = np.concatenate([uniq_np, np.broadcast_to(
-            uniq_np[-1:], (n_pad - len(uniq_np),))])
-        rows = _grid_block_weighted_sum_subset(
-            cells, values_sorted, axes2, margin2, ids, kk, block, grid.shape,
-            mc2, row_len2, weight_fn)[:len(uniq_np)]
-    local = ((iz % bz) * by + (iy % by)) * bx + (ix % bx)
-    picked = rows.reshape(-1, V + 1)[inv * B + local]
-    return picked[:, V] > 0.0, picked[:, :V]
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,6 @@ every rank's repaired count.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -127,26 +126,22 @@ def sharded_interpolate_field(points, values, grid: Grid, mesh: Mesh,
 def _slab_repair(mesh: Mesh, field, den, survey, skip_l, cells_g, cells_l,
                  values_l, grid: Grid, x_ax, y_ax, z_slab, z_pad,
                  margin: float, block, dims_slab, slab_shape, nz_pad: int,
-                 k: int, V: int, sz: int, method: str, power: float,
-                 max_panel: int = 8192):
+                 k: int, V: int, sz: int, method: str, power: float):
     """Per-slab repair of uncovered nodes — the sharded form of
-    ``fused_grid_knn.fused_repair``. Each eligible rank re-evaluates its
-    own uncovered blocks at the 1.6× widened margin from its local window
-    (the halo is sized for that margin), certifies through the coverage
+    ``fused_grid_knn.fused_repair``, on its plan (``_repair_plan``, the
+    void rule and the panel cap). Each eligible rank re-evaluates its own
+    uncovered blocks at the widened margin from its local window (the
+    halo is sized for that margin), certifies through the coverage
     sentinel and writes into its slab: kernel 1's second launch on that
     rank.
 
     Every rank gathers every rank's survey and takes the same decisions
-    from them: eligibility per rank (the survey's ids fit, and the
-    uncovered nodes are not scattered over most blocks), and one panel
-    width C2 planned over the whole padded grid. Returns ``(field', den',
-    n_uncovered per rank, n_repaired per rank, n_left)`` — ``n_left``
-    nodes (far-field voids and the slabs whose repair was ineligible)
-    remain for the global ladder."""
+    from them: eligibility per rank (the survey's ids fit, and the void
+    rule does not hold), and one panel width C2 planned over the whole
+    padded grid. Returns ``(field', den', n_uncovered per rank, n_repaired
+    per rank, n_left)`` — ``n_left`` nodes (far-field voids and the slabs
+    whose repair was ineligible) remain for the global ladder."""
     from ptv_interpolation_tpu_torch.ops import fused_grid_knn as fg
-    from ptv_interpolation_tpu_torch.ops.neighbors import cell_meta_np
-    from ptv_interpolation_tpu_torch.parallel.slab_store import (
-        REPAIR_MARGIN_FACTOR)
 
     surveys = all_gather_cat(mesh, survey[None]).cpu().numpy()
     nblk_cap = surveys.shape[1] - 2
@@ -156,23 +151,18 @@ def _slab_repair(mesh: Mesh, field, den, survey, skip_l, cells_g, cells_l,
     n_rep_d = np.zeros(mesh.size, np.int64)
     if n_fix_total == 0:
         return field, den, n_fix_d, n_rep_d, 0
-    bz, by, bx = block
-    B = bz * by * bx
+    B = block[0] * block[1] * block[2]
     eligible = ((n_bad_d > 0) & (n_bad_d <= nblk_cap)
-                & (n_bad_d * B <= np.maximum(32 * n_fix_d, 64 * B)))
+                & ~fg._repair_void(n_bad_d, n_fix_d, B))
     if not eligible.any():
         return field, den, n_fix_d, n_rep_d, n_fix_total
 
-    cell_size = 1.0 / cell_meta_np(cells_g)[1]
-    margin2 = REPAIR_MARGIN_FACTOR * float(margin)
-    dx, dy, dz = grid.spacing
-    mc2 = tuple(int(math.ceil((ext + 2.0 * margin2) / cell_size)) + 1
-                for ext in (bx * dx, by * dy, bz * dz))[::-1]
+    margin2, mc2, _ = fg._repair_plan(cells_g, grid, block, margin)
     # one panel width over the whole padded grid, as in the JAX package
     C2 = fg._panel_width(fg._block_total_capacity(
         cells_g, (x_ax, y_ax, z_pad), margin2, tuple(block),
         (nz_pad, grid.ny, grid.nx), mc2))
-    if C2 > max_panel:
+    if C2 > fg._REPAIR_PANEL_MAX:
         return field, den, n_fix_d, n_rep_d, n_fix_total
 
     if eligible[mesh.rank]:
@@ -325,7 +315,8 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         field, den = fg.fused_block_sums(
             cells_l, store.values_l, (x_ax, y_ax, z_slab), margin, block,
             slab_shape, mc, C, k, method, power)
-        survey = fg._repair_survey(den, skip_l, block, dims_slab, nblk_cap)
+        survey, _ = fg._repair_survey(den, skip_l, block, dims_slab,
+                                      nblk_cap)
         field, den, n_fix, n_rep, n_left = _slab_repair(
             mesh, field, den, survey, skip_l, cells, cells_l, store.values_l,
             grid, x_ax, y_ax, z_slab, z_pad, margin, block, dims_slab,

@@ -32,9 +32,8 @@ import math
 import numpy as np
 import torch
 
+from ptv_interpolation_tpu_torch.ops.fused_grid_knn import REPAIR_MARGIN_FACTOR
 from ptv_interpolation_tpu_torch.ops.neighbors import CellList, cell_meta_np
-
-REPAIR_MARGIN_FACTOR = 1.6   # must match fused_grid_knn.fused_repair
 
 
 @dataclasses.dataclass

@@ -182,10 +182,15 @@ def test_reassemble_and_survey_match_jax():
         w = jfg._repair_survey(jnp.asarray(want[..., 3]),
                                None if sk is None else jnp.asarray(sk),
                                block, s["dims"], 64)
-        g = tfg._repair_survey(got[..., 3],
-                               None if sk is None else torch.from_numpy(sk),
-                               block, s["dims"], 64)
+        g, ids = tfg._repair_survey(
+            got[..., 3], None if sk is None else torch.from_numpy(sk),
+            block, s["dims"], 64)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        # past the survey's 64 ids, the device ids go on in order
+        n_bad = int(g[1])
+        assert n_bad > 64 and ids.shape == (n_bad,)
+        np.testing.assert_array_equal(ids[:64].numpy(), g[2:].numpy())
+        assert (torch.diff(ids) > 0).all()
 
 
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
@@ -214,6 +219,67 @@ def test_fused_repair_matches_jax(mode):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("cloud", ["uniform", "corner_slab"])
+@pytest.mark.parametrize("block", [(2, 4, 8), (4, 4, 8), (8, 8, 16)])
+def test_repair_plan_agrees_with_its_users(cloud, block, monkeypatch):
+    """One plan for the widened-margin repair: its window covers a block
+    and the widened margin on each side; each rank's slab store holds
+    every row that window reads for the rank's blocks, with a halo of the
+    widened margin; and the cell-list stage's guard radius reaches the
+    factor times the margin."""
+    import inspect
+    from ptv_interpolation_tpu_torch.ops.neighbors import cell_meta_np
+    from ptv_interpolation_tpu_torch.parallel import slab_store
+    pts, vals, bounds, n = getattr(fx, cloud)()
+    grid = create_grid(bounds, n)
+    k = 10
+    cells, vs, axes, margin, _, _, _ = tgk._host_setup(
+        pts, vals, grid, k, block, 1.45, cell_divisor=3.0, device="cpu")
+    margin2, mc2, axes2 = tfg._repair_plan(cells, grid, block, margin)
+    inv = cell_meta_np(cells)[1]
+    assert margin2 == tfg.REPAIR_MARGIN_FACTOR * margin
+    dx, dy, dz = grid.spacing
+    for m, ext in zip(mc2, (block[0] * dz, block[1] * dy, block[2] * dx)):
+        assert (m - 1) / inv >= ext + 2.0 * margin2
+    for got, want in zip(axes2, axes):
+        np.testing.assert_array_equal(got, want)
+
+    # two ranks' z-slabs, each a whole number of blocks, the last padded
+    bz, n_dev = block[0], 2
+    slab = -(-grid.nz // (n_dev * bz)) * bz
+    z_slabs = tgk._pad_axis(grid.z, slab * n_dev).reshape(n_dev, slab)
+    row0, n_loc, halo = slab_store._slab_windows(cells, z_slabs, bz, dz,
+                                                 margin)
+    assert halo == float(np.float32(margin2))
+    m32 = torch.tensor(np.float32(margin2))
+    for d in range(n_dev):
+        lo = torch.cartesian_prod(torch.from_numpy(axes2[0][::block[2]]),
+                                  torch.from_numpy(axes2[1][::block[1]]),
+                                  torch.from_numpy(z_slabs[d, ::bz]))
+        start, cnt = tgk._block_rows(cells, lo, m32, mc2)
+        read = cnt > 0
+        assert (start[read] >= row0[d]).all()
+        assert (start[read] + cnt[read] <= row0[d] + n_loc[d]).all()
+
+    field = torch.zeros(grid.shape + (3,))
+    den = torch.ones(grid.shape)
+    den[0, 0, 0] = den[-1, -1, -1] = 0.0            # two corner nodes
+    guards = []
+    celllist = tgk._celllist_repair_eval_csr
+    bind = inspect.signature(celllist).bind
+
+    def spy(*a, **kw):
+        guards.append(bind(*a, **kw).arguments["guard_radius"])
+        return celllist(*a, **kw)
+
+    monkeypatch.setattr(tgk, "_celllist_repair_eval_csr", spy)
+    tgk.repair_empty_nodes(field, den, torch.from_numpy(pts),
+                           torch.from_numpy(vals), grid, k, "sibson", 2.0,
+                           cells=cells, margin=margin, values_sorted=vs)
+    guard, = guards
+    assert guard >= tfg.REPAIR_MARGIN_FACTOR * margin
 
 
 def test_fused_eval_input_checks():

@@ -11,6 +11,7 @@ import torch
 
 from ptv_interpolation_tpu.grid import create_grid as jax_create_grid
 from ptv_interpolation_tpu.interpolate import knn_weights as jkw
+from ptv_interpolation_tpu.ops import fused_grid_knn as jfg
 from ptv_interpolation_tpu.ops import grid_knn as jgk
 from ptv_interpolation_tpu.ops.neighbors import (
     build_cell_list as jax_build_cell_list, csr_candidate_panel)
@@ -162,8 +163,8 @@ def _stages(rec):
 
 
 def _widened(s, block=BLOCK):
-    """Repair stage 2's geometry: 1.6× the margin, its region dims and
-    row capacity."""
+    """The widened-margin repair's geometry: 1.6× the margin, its region
+    dims and row capacity."""
     cell_size = 1.0 / float(s["cells"].inv_host)
     margin2 = 1.6 * float(s["margin"])
     dx, dy, dz = s["grid"].spacing
@@ -176,9 +177,9 @@ def _widened(s, block=BLOCK):
 
 
 def test_subset_evaluators_match_jax():
-    """Repair stage 2 at the widened margin over a few blocks: the
-    streaming subset evaluator and the fused one (kernel 1's plain version
-    here) against the JAX package's streaming subset evaluator."""
+    """The widened-margin repair's streaming evaluator over a few blocks
+    against the JAX package's. (Kernel 1 over a set of blocks is held in
+    ``test_fused_repair_matches_jax``.)"""
     s = _setup(fx.corner_slab())
     margin2, mc2, row_len2, axes2 = _widened(s)
     n_blocks = int(np.prod([-(-a // b) for a, b in
@@ -195,14 +196,6 @@ def test_subset_evaluators_match_jax():
         s["grid"].shape, mc2, row_len2, tfn).numpy()
     np.testing.assert_array_equal(got[..., 3] == 0, want[..., 3] == 0)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-    fused = tfg.fused_subset_weighted_sum(
-        s["tcells"], s["tvs"], axes2, margin2, ids, K, BLOCK,
-        s["grid"].shape, mc2, "sibson", 2.0, 3).numpy()
-    np.testing.assert_array_equal(fused[..., 3] == 0, want[..., 3] == 0)
-    np.testing.assert_allclose(fused, want, rtol=RTOL, atol=ATOL)
-    assert tfg.fused_subset_weighted_sum(
-        s["tcells"], s["tvs"], axes2, margin2, ids, K, BLOCK,
-        s["grid"].shape, mc2, "sibson", 2.0, 3, max_panel=128) is None
 
 
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
@@ -307,9 +300,11 @@ def _repair_inputs(s, uncovered):
 
 
 def test_ladder_celllist_stage_serves():
-    """Uncovered nodes scattered one per block over most blocks: the fused
-    and subset stages decline (too many blocks for the nodes), and the
-    cell-list stage serves what it certifies, as in the JAX package."""
+    """Uncovered nodes scattered one per block over most blocks: the
+    widened-margin stage declines (too many blocks for the nodes), and
+    the cell-list stage serves what it certifies, as in the JAX package.
+    100 nodes: the cell-list and brute-force stages take counts that are
+    no power of two."""
     s = _setup(fx.uniform())
     rng = np.random.default_rng(5)
     dims = [-(-a // b) for a, b in zip(s["grid"].shape, BLOCK)]
@@ -332,7 +327,7 @@ def test_ladder_celllist_stage_serves():
                 values_sorted=s["tvs"], block=BLOCK)
         stages = _stages(rec)
         assert stages["uncovered"] == 100
-        assert "fused" not in stages and "subset" not in stages
+        assert "fused" not in stages
         assert stages["celllist"] > 50
         assert stages["celllist"] + stages.get("bruteforce", 0) == 100
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
@@ -341,36 +336,50 @@ def test_ladder_celllist_stage_serves():
 
 @pytest.mark.parametrize("evaluator", ["fused", "streaming"])
 def test_ladder_subset_stage_serves(evaluator, monkeypatch):
-    """When the fused repair declines, the subset stage serves the
-    uncovered blocks at the widened margin — through kernel 1
-    (``fused_subset_weighted_sum``) or, when its panel is too wide, the
-    streaming subset evaluator — and brute force the rest, as the JAX
-    package's ladder does. Tolerance as for whole routes: the far void
-    nodes' brute-force sums differ by a few ulps more."""
+    """The widened-margin stage serves the uncovered blocks of the
+    corner-slab cloud where the JAX package's survey ids do not reach
+    them all (its fused repair declines, its subset stage serves) —
+    through kernel 1 (``fused``) over the blocks' device ids — or where
+    kernel 1's panel is too wide, through the streaming subset evaluator
+    (``streaming``); brute force takes the rest, as in the JAX package's
+    ladder. Tolerance as for whole routes: the far void nodes'
+    brute-force sums differ by a few ulps more."""
     s = _setup(fx.corner_slab())
     jfn, tfn = _weights("sibson")
     field, den = jgk._grid_block_weighted_sum(
         s["cells"], s["vs"], s["axes"], jnp.float32(s["margin"]), K, BLOCK,
         s["grid"].shape, s["mc"], s["row_len"], jfn, 0.9, 8, False,
         "bisect")
+    if evaluator == "fused":
+        monkeypatch.setattr(jfg, "_NBLK_MAX", 8)
+    else:
+        monkeypatch.setattr(tfg, "_REPAIR_PANEL_MAX", 0)
     want = jgk.repair_empty_nodes(
         field, den, s["pts"], s["vals"], s["grid"], K, "sibson", 2.0,
         cells=s["cells"], margin=s["margin"], values_sorted=s["vs"],
         block=BLOCK)
-    monkeypatch.setattr(tfg, "fused_repair", lambda *a, **kw: None)
-    if evaluator == "streaming":
-        monkeypatch.setattr(tfg, "fused_subset_weighted_sum",
-                            lambda *a, **kw: None)
+    streamed = []
+    stream = tfg._grid_block_weighted_sum_subset
+
+    def spy(*a, **kw):
+        streamed.append(1)
+        return stream(*a, **kw)
+
+    monkeypatch.setattr(tfg, "_grid_block_weighted_sum_subset", spy)
     with capture() as rec:
         got = tgk.repair_empty_nodes(
             _torch(field), _torch(den), _torch(s["pts"]), _torch(s["vals"]),
             s["tgrid"], K, "sibson", 2.0, cells=s["tcells"],
             margin=s["margin"], values_sorted=s["tvs"], block=BLOCK)
     stages = _stages(rec)
+    blocks = {(z // BLOCK[0], y // BLOCK[1], x // BLOCK[2])
+              for z, y, x in zip(*np.nonzero(np.asarray(den) == 0))}
+    assert len(blocks) > 8                   # past the survey's ids
     assert stages["uncovered"] == int((np.asarray(den) == 0).sum())
-    assert stages["subset"] > 100 and "celllist" not in stages
-    assert stages["subset"] + stages.get("bruteforce", 0) == \
+    assert stages["fused"] > 100 and "celllist" not in stages
+    assert stages["fused"] + stages.get("bruteforce", 0) == \
         stages["uncovered"]
+    assert (len(streamed) == 1) == (evaluator == "streaming")
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=ROUTE_RTOL, atol=ROUTE_ATOL)
 
