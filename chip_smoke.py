@@ -12,19 +12,24 @@ and the script exits non-zero:
 2. build: the three kernels of ``ptv_interpolation_tpu_torch/ops/csrc/`` with
    ``nvcc``, one compiler per source, all started together (timed, counted
    as set-up);
-3. the grid kernel against its plain PyTorch version on the headline problem
+3. the grid kernel, which stages each block's candidates from the cell
+   list, against its plain PyTorch version (phase 1's panel and query rows
+   and ``_fused_eval_plain``) on the headline problem
    (``bench.make_problem``: 1M points → 256³, k=50, block (8,8,16)): on a
    subset of blocks with the corner and edge blocks, sibson and IDW, then
-   over the full panel (16 384 blocks × 4 sub-tiles), timed — τ² (the
+   over every block (16 384 blocks × 4 sub-tiles), timed — τ² (the
    kernel's optional τ² output) bit-equal to the plain bisection's, den==0
-   identical, values within RTOL/ATOL; it prints how many nodes overflowed
-   their shortlist and ran over the whole panel, and the kernel's bound
-   (``bound_ms``) reckoned from this panel's pairs within the margin;
+   identical, values within RTOL/ATOL, the candidates staged as many as
+   the panel holds; it prints its shared-memory plan, how many nodes
+   overflowed their shortlist and ran over the whole panel, and the
+   kernel's bound (``bound_ms``) reckoned from the panel's pairs within
+   the margin;
 4. the main path: ``sibson_grid_interpolate(..., device="cuda")`` — one
    warm-up and 3 timed runs, the kernel's launch counts for the main pass
    and for repair, peak memory, a stage-by-stage breakdown, and relative
    L2 against the f64 scipy reference on 20k interior nodes and on 4k
-   nodes of the faces, edges and corners (served by repair);
+   nodes of the faces, edges and corners (served by repair), and the
+   field's SHA-1;
 5. the MAD kernel against its plain version on the filter's panel of the
    phase-6 problem: a subset of scatter blocks with the 8 domain corners
    and the planted outliers at k = 30 and 25, then the full panel at
@@ -37,7 +42,8 @@ and the script exits non-zero:
    one warm-up run through CSV/TIFF/NPZ files and 3 timed runs on arrays,
    with both kernels' launch counts, the filter branch, the repair ladder's
    stages, stage walls, peak memory, and checks of the decisions (f64
-   cKDTree), the field (f64 scipy sibson) and the solid (exactly 0);
+   cKDTree), the field (f64 scipy sibson; its SHA-1 printed) and the
+   solid (exactly 0);
 7. the one-phase kernel of ``backend='pallas'`` against its plain version
    on the headline problem (block (2,8,8), 14 halvings): a subset of
    blocks with the corners, edges, blocks whose windows leave the cell
@@ -121,8 +127,8 @@ and the script exits non-zero:
    problem — a warm-up and 3 timed runs per world: the median wall per
    rank beside phase 4's, each rank's store bytes against the whole
    store's, kernel 1's launches per rank, the slabs' repair counts and
-   ``n_left``, peak memory per rank, and the largest |Δ| and count of
-   differing nodes against phase 4's output; gated on relative L2 ≤ 1e-6
+   ``n_left``, peak memory per rank, the field's SHA-1, and the largest
+   |Δ| and count of differing nodes against phase 4's output; gated on relative L2 ≤ 1e-6
    against f64 scipy on phase 4's 20 000 interior nodes, ≥ 99.9% of
    values within rtol 1e-3 / atol 1e-4 of phase 4's output and each
    rank's window within (total/n + halo)·1.35 rows. (b) z-sharded
@@ -233,6 +239,15 @@ def phase_build():
     return secs
 
 
+def _sha1(*arrays):
+    """SHA-1 of the arrays' bytes: equal only where every bit is."""
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def _cuda_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -281,26 +296,27 @@ def _pairs_within(torch, m2, c, q):
     return total
 
 
-def _grid_bound(torch, m2, cand, q, C, V):
+def _grid_bound(torch, m2, cand, q, C, V, n_points):
     """Kernel 1's bound on this panel: every node against its block's
-    candidates within the margin; the x, y, z and V value rows, the
-    queries and the output moved once."""
+    candidates within the margin; the cell list's points and values read
+    once (``n_points`` rows) and the output written once."""
     nb = cand.shape[1] // C
     n_rows, _, Bt = q[0].shape
     pairs = _pairs_within(torch, float(m2), cand[:3].view(3, nb, C),
                           torch.stack(q).view(3, nb, n_rows // nb * Bt))
-    n_bytes = 4 * ((3 + V) * cand.shape[1] + 3 * n_rows * Bt
-                   + 8 * n_rows * Bt)
+    n_bytes = 4 * ((3 + V) * n_points + 8 * n_rows * Bt)
     return _bound(pairs, n_bytes), pairs / (n_rows * Bt)
 
 
-def _check_tau2(torch, fg, args, what):
-    """Kernel 1's τ² output bit-equal to the plain bisection's; returns
-    the nodes that overflowed their shortlist and the node count."""
-    m2, cand, qx, qy, qz, block, sz, k, V, C = args[:10]
+def _check_tau2(torch, fg, run, plain, what):
+    """Kernel 1's τ² output (``run(tau2)``) bit-equal to the plain
+    bisection's on phase 1's panel (``plain``: m2, cand, q, block, sz, k,
+    C); returns the nodes that overflowed their shortlist and the node
+    count."""
+    m2, cand, (qx, qy, qz), block, sz, k, C = plain
     tau2 = torch.empty(qx.shape[0], qx.shape[2], device=cand.device)
     with capture() as rec:
-        fg._fused_eval(*args, tau2=tau2)
+        run(tau2)
     overflow = rec.counters()["kernel1.overflow"]
     want = fg._fused_tau2_plain(m2, cand, qx, qy, qz, block, sz, k, C)
     if not torch.equal(tau2, want):
@@ -354,34 +370,59 @@ def phase_kernel(torch, pts, vals, grid, k):
     interior = rng.integers(1, n_blocks - 1, 200)
     ids = np.unique(np.concatenate([
         [(z * nby + y) * nbx + x for z, y, x in corners + edges], interior]))
-    cand = fg._compact_gather(cells, values_sorted, axes, margin, BLOCK,
-                              grid.shape, mc, C, ids=ids)
-    q = fg._build_queries(axes, BLOCK, dims, sz, ids=ids, device=dev)
+
+    def kernel(mode, ids=None, tau2=None):
+        return fg._fused_eval_cells(cells, values_sorted, axes, margin, m2,
+                                    BLOCK, grid.shape, mc, C, k, mode, 2.0,
+                                    ids=ids, tau2=tau2)
+
+    def phase1(ids=None):
+        cand = fg._compact_gather(cells, values_sorted, axes, margin, BLOCK,
+                                  grid.shape, mc, C, ids=ids)
+        return cand, fg._build_queries(axes, BLOCK, dims, sz, ids=ids,
+                                       device=dev)
+
+    cand, q = phase1(ids)
     errs = []
     for mode in ("sibson", "idw"):
-        args = (m2, cand, *q, BLOCK, sz, k, V, C, mode, 2.0)
-        got, want = fg._fused_eval(*args), fg._fused_eval_plain(*args)
+        got = kernel(mode, ids)
+        want = fg._fused_eval_plain(m2, cand, *q, BLOCK, sz, k, V, C, mode,
+                                    2.0)
         torch.cuda.synchronize()
         what = f"{mode}, {len(ids)} blocks incl. corners/edges"
         errs.append(_compare(torch, got, want, V, what))
-        _check_tau2(torch, fg, args, what)
+        _check_tau2(torch, fg, lambda t: kernel(mode, ids, t),
+                    (m2, cand, q, BLOCK, sz, k, C), what)
 
-    cand = fg._compact_gather(cells, values_sorted, axes, margin, BLOCK,
-                              grid.shape, mc, C)
-    q = fg._build_queries(axes, BLOCK, dims, sz, device=dev)
-    args = (m2, cand, *q, BLOCK, sz, k, V, C, "sibson", 2.0)
-    ms = _cuda_ms(torch, lambda: fg._fused_eval(*args), reps=5)
-    plain_ms = _cuda_ms(torch, lambda: fg._fused_eval_plain(*args), reps=1)
-    got, want = fg._fused_eval(*args), fg._fused_eval_plain(*args)
+    cand, q = phase1()
+    ms = _cuda_ms(torch, lambda: kernel("sibson"), reps=5)
+    plain_ms = _cuda_ms(torch, lambda: fg._fused_eval_plain(
+        m2, cand, *q, BLOCK, sz, k, V, C, "sibson", 2.0), reps=1)
+    with capture() as rec:
+        got = kernel("sibson")
+    counts = rec.counters()
+    want = fg._fused_eval_plain(m2, cand, *q, BLOCK, sz, k, V, C, "sibson",
+                                2.0)
     torch.cuda.synchronize()
     errs.append(_compare(torch, got, want, V, "sibson, full headline panel"))
-    overflow, n_nodes = _check_tau2(torch, fg, args,
-                                    "sibson, full headline panel")
-    (bound_ms, bound_by), per_node = _grid_bound(torch, m2, cand, q, C, V)
-    log(f"  full panel, sibson: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}; {per_node:.1f} candidates "
-        f"within the margin per node); shortlist overflow {overflow} of "
-        f"{n_nodes} nodes")
+    real = int((cand[0] < REAL).sum())
+    if counts["kernel1.staged_slots"] != real:
+        raise AssertionError(f"the kernel staged {counts['kernel1.staged_slots']}"
+                             f" candidates, phase 1's panel holds {real}")
+    overflow, n_nodes = _check_tau2(
+        torch, fg, lambda t: kernel("sibson", tau2=t),
+        (m2, cand, q, BLOCK, sz, k, C), "sibson, full headline panel")
+    (bound_ms, bound_by), per_node = _grid_bound(torch, m2, cand, q, C, V,
+                                                 cells.n_points)
+    S, L, smem = fg._kernel1_plan(C, sz * BLOCK[1] * BLOCK[2], k,
+                                  mc[0] * mc[1])
+    log(f"  full panel, sibson: kernel {ms:.3f} ms (staging from the cell "
+        f"list, {smem} bytes of shared memory a CTA, S = {S}, L = {L}; "
+        f"{real} candidates staged, as phase 1's panel holds; list "
+        f"overflow {counts['kernel1.list_overflow']} warps), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{per_node:.1f} candidates within the margin per node); shortlist "
+        f"overflow {overflow} of {n_nodes} nodes")
     return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
@@ -443,6 +484,7 @@ def phase_main_path(torch, pts, vals, grid, k):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("non-finite values in the interpolated field")
+    log(f"  field SHA-1 {_sha1(out.cpu().numpy())}")
 
     # stage-by-stage breakdown of the same path, synchronised per stage
     dev = torch.device("cuda")
@@ -468,17 +510,11 @@ def phase_main_path(torch, pts, vals, grid, k):
 
     p, cells, vs, axes, margin, mc, _, v = stage("setup", setup)
 
-    def phase1():
-        C = fg._panel_width(fg._block_total_capacity(cells, axes, margin,
-                                                     BLOCK, grid.shape, mc))
-        cand = fg._compact_gather(cells, vs, axes, margin, BLOCK, grid.shape,
-                                  mc, C)
-        return C, cand, fg._build_queries(axes, BLOCK, dims, sz, device=dev)
-
-    C, cand, q = stage("phase1", phase1)
-    raw = stage("kernel", lambda: fg._fused_eval(
-        np.float32(margin * margin), cand, *q, BLOCK, sz, k, V, C, "sibson",
-        2.0))
+    C = stage("capacity", lambda: fg._panel_width(fg._block_total_capacity(
+        cells, axes, margin, BLOCK, grid.shape, mc)))
+    raw = stage("kernel", lambda: fg._fused_eval_cells(
+        cells, vs, axes, margin, np.float32(margin * margin), BLOCK,
+        grid.shape, mc, C, k, "sibson", 2.0))
     full = stage("reassemble",
                  lambda: fg._reassemble(raw, BLOCK, dims, sz, grid.shape))
     n_uncovered = int((full[..., V] == 0).sum())
@@ -853,7 +889,8 @@ def phase_pipeline(torch, fluid, pts, vals, thr_idx, mad_idx):
     solid = ~mask
     n_bad = sum(int(np.count_nonzero(getattr(res, f)[solid]))
                 for f in "uvw")
-    log(f"  solid: {int(solid.sum())} nodes, {n_bad} nonzero values")
+    log(f"  solid: {int(solid.sum())} nodes, {n_bad} nonzero values; "
+        f"field SHA-1 {_sha1(res.u, res.v, res.w)}")
     if n_bad:
         raise AssertionError("solid nodes are not exactly 0")
     if not all(np.isfinite(getattr(res, f)).all() for f in "uvw"):
@@ -2779,6 +2816,7 @@ def _report_grid(ranks, world, workdir, single_wall, single_out,
         f"{st[0]['repaired']}, n_left {st[0]['n_left']}; peak device "
         f"memory per rank "
         f"{[round(r['peak'] / 2**30, 3) for r in grid]} GiB")
+    log(f"  field SHA-1 {_sha1(got)}")
     diff = np.abs(got - single_out)
     close = float(np.isclose(got, single_out, rtol=1e-3, atol=1e-4).mean())
     n_diff = int((diff > 0).any(axis=-1).sum())

@@ -1,9 +1,10 @@
 // Fused τ-bisection weighted-sum kernel for regular grids (IDW / sibson).
 //
 // Replaces ptv_interpolation_tpu/ops/fused_grid_knn.py::_fused_kernel, the
-// Pallas TPU kernel of the fused grid kNN path. Its wrapper and plain
-// PyTorch version are _fused_eval and _fused_eval_plain in
-// ptv_interpolation_tpu_torch/ops/fused_grid_knn.py.
+// Pallas TPU kernel of the fused grid kNN path. Its wrapper is
+// _fused_eval_cells in ptv_interpolation_tpu_torch/ops/fused_grid_knn.py;
+// its plain PyTorch version is phase 1 (_compact_gather, _build_queries)
+// and _fused_eval_plain there.
 //
 // What it computes, for each grid node of one (block, sub-tile) row, over
 // the block's compacted candidate panel of C slots:
@@ -20,9 +21,14 @@
 //   out[V]   = covered ? Σw : 0, out[V+1..7] = 0;
 //   tau2[q]  = τ² when the caller passes a tau2 array (tests), else nothing.
 //
-// Layouts (those of the JAX package): cand is (8, n_blocks·C) f32 with rows
-// x, y, z, v_0..v_{V-1}; empty slots hold 1e19 coordinates. qx/qy/qz are
-// (n_blocks·n_sub, Bt) f32; out is (n_blocks·n_sub, 8, Bt) f32.
+// Inputs. The cell list of the JAX package's layout: `starts` (the CSR
+// offsets of its cells, z-major), the cell-sorted points (n + pad, 3) and
+// values (n + pad, V), the cell grid's origin, inverse cell size and dims;
+// the grid's axes padded to whole blocks; optionally the ids of the blocks
+// to evaluate (the repair's). out is (n_blocks·n_sub, 8, Bt) f32, rows in
+// (block, sub-tile) order and each row's nodes in (tz, ty, tx) order, as
+// the plain version's phase 1 (_compact_gather, _build_queries) lays out
+// its panel and query rows.
 //
 // Bound (NVIDIA H100 80GB HBM3, 700.00 W: its published peaks). A candidate
 // beyond the margin counts toward no coverage, halving or sum, so the
@@ -31,15 +37,31 @@
 // C = 1 920 slots, ~1 570 real candidates per block) 146 per node, 2.4e9
 // pairs of 8 fp32 operations, 0.58 ms at 33.5e12/s (the 67 TFLOP/s peak
 // counts an FMA as two, and these operations are not fused); the bytes
-// (the panel's x, y, z, u, v, w once, the queries, the output: 1.5 GB)
-// take 0.45 ms at 3.35 TB/s (chip_smoke.py phase 3 reckons both). So it
+// (the store's points and values once, 24 MB, and the output, 0.54 GB)
+// take 0.17 ms at 3.35 TB/s (chip_smoke.py phase 3 reckons both). So it
 // is bound by fp32 issue, and the design's aim is to evaluate each d² as
 // few times as it can, and as few d² beyond the margin as it can.
 //
 // Design. One CTA per (block, sub-tile) row, one thread per node. The CTA
-// stages its block's coordinates once in dynamic shared memory as three
-// f32 arrays x, y, z (12·C bytes) with the bounding box of every chunk of
-// 32 slots (C bytes). Threads map to nodes so that each warp takes a
+// stages its block's candidates itself, from the cell list. A block's
+// candidate region is mcz·mcy rows of mcx cells starting `margin` below
+// its low corner, and each row is one contiguous run of the sorted store:
+// a thread a row forms the row's [start, end) from `starts` (the base cell
+// as floor(((lo − margin) − origin)·inv) in f32, rows outside the cell
+// grid empty, x clipped to it), a scan over the warps gives each run its
+// first slot (row jz·mcy + jy, then the store's order within the row: the
+// slot order of phase 1's panel, C slots with 1e19 coordinates past the
+// block's count), and the threads copy the runs' x, y, z into three f32
+// arrays (12·C bytes), 8 slots a thread with their loads in flight
+// together, then form the bounding box of every chunk of 32 slots (32
+// bytes a chunk, 8 lanes a chunk). A table of the non-empty runs (the
+// offset from slot to sorted index, 4 bytes each) and, per chunk, the run
+// that holds its first slot and a bit for each run begun inside it (6
+// bytes) map a slot to its sorted index without a search; the sums read
+// the values there, and the values are never staged. Each node's
+// coordinates come from the padded axes. So the slots, their order, every
+// d² and every sum are those of the panel phase 1 gathers.
+// Threads map to nodes so that each warp takes a
 // 4 × 4 × 2 (x, y, z) brick of the sub-tile where the sub-tile's shape
 // allows (the sub-tile's own order elsewhere). Each warp then lists, once,
 // the slots (u16, in slot order, capacity L planned by the wrapper from the
@@ -93,7 +115,8 @@
 // counts in its shortlist area, or in registers where S = 0), and runs
 // the same steps over that list — the same result. Counters: the warps'
 // list lengths, the warps that passed over the panel, the threads without
-// a shortlist, the threads whose τ² crossed b_k's edge. Passes over the
+// a shortlist, the threads whose τ² crossed b_k's edge, the real
+// candidates staged (once per block, by its first sub-tile). Passes over the
 // list: 2 (and a rank among the open slots and 3 visits of the
 // shortlist), against ~28 over the panel for the sequential steps (1
 // coverage, 24 halvings, 2 statistics, 1 sums).
@@ -105,6 +128,40 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+// Where a launch's blocks find their candidates and nodes (device
+// pointers; ids may be null). This and Geometry are the C interface's
+// arguments, outside the unnamed namespace so that the entry points that
+// take them keep external linkage.
+struct Inputs {
+  const int* starts;          // (n_cells + 1) CSR offsets, cells z-major
+  const float* points;        // (n + pad, 3) the cell-sorted points
+  const float* values;        // (n + pad, V) their values
+  const float* x_ax;          // the grid's axes, padded to whole blocks
+  const float* y_ax;
+  const float* z_ax;
+  const float* origin;        // (3,) the cell grid's low corner, x y z
+  const float* inv_cell;      // (3,) its inverse cell size
+  const long long* ids;       // the flat ids of the blocks evaluated, or
+                              // null: block b is CTA row b / n_sub
+};
+
+// A launch's shapes and parameters.
+struct Geometry {
+  int n_blocks;               // blocks evaluated: CTAs n_blocks · n_sub
+  int nby, nbx;               // the grid's blocks along y and x
+  int n_sub;                  // sub-tiles per block, along z
+  int sz, sy, sx;             // a sub-tile's nodes along z, y and x
+  int ncx, ncy, ncz;          // the cell grid
+  int mcz, mcy, mcx;          // a block's candidate region, in cells
+  int C;                      // panel slots per block
+  int k, V, mode;
+  int S;                      // shortlist entries per thread
+  int L;                      // list entries per warp
+  float power;
+  float margin;               // the f32 margin of the candidate region
+  float m2;                   // the f32 margin² of coverage and halvings
+};
 
 namespace {
 
@@ -118,6 +175,9 @@ constexpr int kIdw = 0;
 constexpr int kChunk = 32;                  // panel slots per cull box
 constexpr int kWarp = 32;
 constexpr unsigned kAllLanes = 0xffffffffu;
+constexpr float kSentinel = 1e19f;          // coordinate of an empty slot
+constexpr int kStageBatch = 8;              // slots a thread stages at once
+constexpr int kBoxLanes = 8;                // lanes that form a chunk's box
 // the brick of nodes a warp takes: 4 × 4 × 2 (x, y, z)
 constexpr int kBrickX = 4;
 constexpr int kBrickY = 4;
@@ -128,8 +188,10 @@ enum Counter {
   kOverflow = 0,
   kListSlots = 1,
   kListOverflow = 2,
-  kEdgeSpill = 3
+  kEdgeSpill = 3,
+  kStagedSlots = 4
 };
+
 
 __device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
@@ -458,6 +520,188 @@ __device__ __forceinline__ float bisect(float dk, float m2) {
   return hi;
 }
 
+// The block's candidates as runs of the sorted store, in slot order: the
+// slots of non-empty run e lie at sorted indices slot + delta[e]; first[c]
+// is the run that holds slot kChunk·c, and bit b > 0 of starts[c] is set
+// where a run begins at slot kChunk·c + b, so a slot's run is first[c]
+// and the runs begun after it up to the slot. n slots are filled (≤ C),
+// the rest are empty.
+struct Runs {
+  const int* delta;
+  const unsigned short* first;
+  const unsigned* starts;
+  int n;
+  __device__ __forceinline__ long long sorted(int i) const {
+    const int c = i / kChunk;
+    const unsigned upto = (2u << (i % kChunk)) - 2u;  // bits 1 .. i % kChunk
+    return static_cast<long long>(i) +
+           delta[first[c] + __popc(starts[c] & upto)];
+  }
+};
+
+// Stages the candidates of the block with low corner lo (x, y, z) into
+// px, py, pz and the chunks' bounding boxes: its mcz·mcy rows of mcx
+// cells, starting `margin` below lo (the base cell floor(((lo − margin) −
+// origin)·inv) in f32, as phase 1 forms it; rows outside the cell grid
+// are empty and x is clipped to it), row jz·mcy + jy after row jz·mcy +
+// jy − 1, each in the store's order, then 1e19 up to C (a multiple of
+// kChunk). Returns the runs' table, in delta (R = mcz·mcy entries),
+// starts and first (one entry a chunk). All threads of the CTA call it.
+__device__ Runs stage_runs(const Inputs& in, const Geometry& g,
+                           const float lo[3], int* delta, unsigned* starts,
+                           unsigned short* first, float* px, float* py,
+                           float* pz, float4* boxes) {
+  const int t = threadIdx.x;
+  const int Bt = blockDim.x;
+  const int lane = t % kWarp;
+  const int warp = t / kWarp;
+  const int n_warps = (Bt + kWarp - 1) / kWarp;
+  const bool full = (warp + 1) * kWarp <= Bt;   // a whole warp
+  const unsigned lanes = full ? kAllLanes : (1u << (Bt % kWarp)) - 1u;
+  const int last = full ? kWarp - 1 : Bt % kWarp - 1;
+  const int R = g.mcz * g.mcy;
+  const int n_chunks = g.C / kChunk;
+  int base[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    base[a] = static_cast<int>(
+        floorf(__fmul_rn(__fsub_rn(__fsub_rn(lo[a], g.margin), in.origin[a]),
+                         in.inv_cell[a])));
+  }
+  const int x0 = min(max(base[0], 0), g.ncx);
+  const int x1 = min(max(base[0] + g.mcx, 0), g.ncx);
+  for (int c = t; c < n_chunks; c += Bt) starts[c] = 0u;
+  // Bt rows a round, a thread a row: its [start, end) in the store, a scan
+  // of the counts and of the non-empty rows over the warp, then over the
+  // warps (their totals in px, which is staged only after), then its run's
+  // entries
+  int* totals = reinterpret_cast<int*>(px);
+  int slots = 0;                            // of the rounds before
+  int runs = 0;
+  for (int r0 = 0; r0 < R; r0 += Bt) {
+    const int r = r0 + t;
+    int s = 0;
+    int cnt = 0;
+    if (r < R) {
+      const int cz = base[2] + r / g.mcy;
+      const int cy = base[1] + r % g.mcy;
+      if (cz >= 0 && cz < g.ncz && cy >= 0 && cy < g.ncy) {
+        const int row = (cz * g.ncy + cy) * g.ncx;
+        s = in.starts[row + x0];
+        cnt = in.starts[row + x1] - s;
+      }
+    }
+    int incl = cnt;
+    int nz = cnt > 0 ? 1 : 0;
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int a = __shfl_up_sync(lanes, incl, off);
+      const int b = __shfl_up_sync(lanes, nz, off);
+      if (lane >= off) {
+        incl += a;
+        nz += b;
+      }
+    }
+    if (lane == last) {
+      totals[2 * warp] = incl;
+      totals[2 * warp + 1] = nz;
+    }
+    __syncthreads();
+    int begin = slots + incl - cnt;
+    int e = runs + nz - 1;
+    for (int w = 0; w < n_warps; ++w) {
+      const int a = totals[2 * w];
+      const int b = totals[2 * w + 1];
+      if (w < warp) {
+        begin += a;
+        e += b;
+      }
+      slots += a;
+      runs += b;
+    }
+    if (cnt > 0) {
+      delta[e] = s - begin;
+      if (begin % kChunk != 0 && begin < g.C) {
+        atomicOr(starts + begin / kChunk, 1u << (begin % kChunk));
+      }
+      for (int c = (begin + kChunk - 1) / kChunk;
+           c < n_chunks && c * kChunk < begin + cnt; ++c) {
+        first[c] = static_cast<unsigned short>(e);
+      }
+    }
+    __syncthreads();
+  }
+  // the slots, kStageBatch a thread at a time: their sorted indices, then
+  // all their loads, then the stores
+  const Runs table{delta, first, starts, min(slots, g.C)};
+  for (int i0 = t; i0 < g.C; i0 += kStageBatch * Bt) {
+    int j[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * Bt;
+      j[u] = i < table.n ? static_cast<int>(table.sorted(i)) : -1;
+    }
+    float x[kStageBatch];
+    float y[kStageBatch];
+    float z[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      x[u] = y[u] = z[u] = kSentinel;
+      if (j[u] >= 0) {
+        const float* p = in.points + 3 * static_cast<long long>(j[u]);
+        x[u] = p[0];
+        y[u] = p[1];
+        z[u] = p[2];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * Bt;
+      if (i < g.C) {
+        px[i] = x[u];
+        py[i] = y[u];
+        pz[i] = z[u];
+      }
+    }
+  }
+  __syncthreads();
+  // the chunks' boxes: kBoxLanes lanes a chunk where the threads fill whole
+  // warps (each takes kChunk / kBoxLanes slots, then the lanes combine),
+  // else a thread a chunk; a lane's slots start at an offset that puts the
+  // lanes of a warp on distinct banks
+  const int group = Bt % kWarp == 0 ? kBoxLanes : 1;
+  const int per = kChunk / group;
+  for (int k0 = t - lane; k0 < n_chunks * group; k0 += Bt) {
+    const int k = min(k0 + lane, n_chunks * group - 1);  // the same on a warp
+    const int ch = k / group;
+    const int q = k % group;
+    float4 box_lo = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                0.0f);
+    float4 box_hi = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                                0.0f);
+    for (int u = 0; u < per; ++u) {
+      const int i = ch * kChunk + q * per + (u + ch) % per;
+      box_lo = make_float4(fminf(box_lo.x, px[i]), fminf(box_lo.y, py[i]),
+                           fminf(box_lo.z, pz[i]), 0.0f);
+      box_hi = make_float4(fmaxf(box_hi.x, px[i]), fmaxf(box_hi.y, py[i]),
+                           fmaxf(box_hi.z, pz[i]), 0.0f);
+    }
+    for (int off = group / 2; off > 0; off >>= 1) {
+      box_lo.x = fminf(box_lo.x, __shfl_xor_sync(kAllLanes, box_lo.x, off));
+      box_lo.y = fminf(box_lo.y, __shfl_xor_sync(kAllLanes, box_lo.y, off));
+      box_lo.z = fminf(box_lo.z, __shfl_xor_sync(kAllLanes, box_lo.z, off));
+      box_hi.x = fmaxf(box_hi.x, __shfl_xor_sync(kAllLanes, box_hi.x, off));
+      box_hi.y = fmaxf(box_hi.y, __shfl_xor_sync(kAllLanes, box_hi.y, off));
+      box_hi.z = fmaxf(box_hi.z, __shfl_xor_sync(kAllLanes, box_hi.z, off));
+    }
+    if (q == 0 && k0 + lane < n_chunks * group) {
+      boxes[2 * ch] = box_lo;
+      boxes[2 * ch + 1] = box_hi;
+    }
+  }
+  __syncthreads();
+  return table;
+}
+
 // The node (index in the sub-tile's (tz, ty, tx) order) of thread t: warp
 // w takes brick w of the sub-tile's bricks in (z, y, x) order, lane l the
 // node (l % 4, l / 4 % 4, l / 16) of it, where the sub-tile (sz, sy, sx)
@@ -483,52 +727,62 @@ __device__ __forceinline__ int node_of(int t, int Bt, int sz, int sy,
 // wider sub-tiles, up to 1 024 threads, get 64.
 template <int kThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
-             const float* __restrict__ qy_all,
-             const float* __restrict__ qz_all, float* __restrict__ out,
+fused_kernel(const Inputs in, const Geometry g, float* __restrict__ out,
              float* __restrict__ tau2_out,
-             unsigned long long* __restrict__ counts, int n_blocks, int C,
-             int n_sub, int k, int V, int mode, float power, float m2, int S,
-             int L, int sz, int sy, int sx) {
+             unsigned long long* __restrict__ counts) {
   // dynamic shared memory: the chunks' boxes (2 float4 each), the panel's
-  // x, y and z (C f32 each), the threads' shortlists, the warps' lists
+  // x, y and z (C f32 each), the runs' table (R ints, R = mcz·mcy), the
+  // chunks' run starts (u32 each) and first runs (u16 each), the threads'
+  // shortlists, the warps' lists
   extern __shared__ float4 boxes[];
-  const int n_chunks = (C + kChunk - 1) / kChunk;
+  const int C = g.C;
+  const int k = g.k;
+  const int V = g.V;
+  const int S = g.S;
+  const int L = g.L;
+  const float m2 = g.m2;
+  const int n_chunks = C / kChunk;
   float* px = reinterpret_cast<float*>(boxes + 2 * n_chunks);
   float* py = px + C;
   float* pz = py + C;
+  int* run_delta = reinterpret_cast<int*>(pz + C);
+  unsigned* run_starts =
+      reinterpret_cast<unsigned*>(run_delta + g.mcz * g.mcy);
+  unsigned short* run_first =
+      reinterpret_cast<unsigned short*>(run_starts + n_chunks);
   const int row = blockIdx.x;
   const int Bt = blockDim.x;
   const int t = threadIdx.x;
-  unsigned short* lists = reinterpret_cast<unsigned short*>(pz + C);
+  unsigned short* lists = run_first + n_chunks;
   unsigned short* warp_lists = lists + S * Bt;
-  const long long stride = static_cast<long long>(n_blocks) * C;
-  const long long base = static_cast<long long>(row / n_sub) * C;
 
-  for (int i = t; i < C; i += Bt) {
-    px[i] = cand[base + i];
-    py[i] = cand[stride + base + i];
-    pz[i] = cand[2 * stride + base + i];
+  // the block of this row, and its low corner
+  const int sub = row % g.n_sub;
+  const long long id = in.ids != nullptr ? in.ids[row / g.n_sub]
+                                         : row / g.n_sub;
+  const int ibx = static_cast<int>(id % g.nbx);
+  const int iby = static_cast<int>(id / g.nbx % g.nby);
+  const int ibz = static_cast<int>(id / g.nbx / g.nby);
+  const int bz = g.n_sub * g.sz;
+  const float corner[3] = {in.x_ax[ibx * g.sx], in.y_ax[iby * g.sy],
+                           in.z_ax[ibz * bz]};
+  const Runs runs = stage_runs(in, g, corner, run_delta, run_starts,
+                               run_first, px, py, pz, boxes);
+  if (sub == 0 && t == 0 && counts != nullptr) {
+    atomicAdd(counts + kStagedSlots, static_cast<unsigned long long>(runs.n));
   }
-  __syncthreads();
-  for (int ch = t; ch < n_chunks; ch += Bt) {
-    const int j = ch * kChunk;
-    float4 lo = make_float4(px[j], py[j], pz[j], 0.0f);
-    float4 hi = lo;
-    for (int i = j + 1; i < min(j + kChunk, C); ++i) {
-      lo = make_float4(fminf(lo.x, px[i]), fminf(lo.y, py[i]),
-                       fminf(lo.z, pz[i]), 0.0f);
-      hi = make_float4(fmaxf(hi.x, px[i]), fmaxf(hi.y, py[i]),
-                       fmaxf(hi.z, pz[i]), 0.0f);
-    }
-    boxes[2 * ch] = lo;
-    boxes[2 * ch + 1] = hi;
-  }
-  __syncthreads();
-
-  const int node = node_of(t, Bt, sz, sy, sx);
+  // the thread's node and its coordinates
+  const int node = node_of(t, Bt, g.sz, g.sy, g.sx);
   const long long q = static_cast<long long>(row) * Bt + node;
-  const Dist2 d2_at{px, py, pz, qx_all[q], qy_all[q], qz_all[q]};
+  const int nx = node % g.sx;
+  const int ny = node / g.sx % g.sy;
+  const int nz = node / (g.sx * g.sy);
+  const Dist2 d2_at{px,
+                    py,
+                    pz,
+                    in.x_ax[ibx * g.sx + nx],
+                    in.y_ax[iby * g.sy + ny],
+                    in.z_ax[ibz * bz + sub * g.sz + nz]};
 
   // the slots passes A and B visit: the warp's list, or the panel
   Slots src{nullptr, C, 0, boxes};
@@ -628,7 +882,7 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
 
   float dmin = 0.0f;
   float std_eps = 0.0f;
-  if (mode != kIdw) {
+  if (g.mode != kIdw) {
     float n_ok = 0.0f;
     float s1 = 0.0f;
     float dmn = 3.4e38f;
@@ -653,17 +907,28 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
     dmin = dmn > 1e18f ? 0.0f : dmn;
   }
 
-  const float* vals = cand + 3 * stride + base;
   float den = 0.0f;
   float num[kMaxV];
 #pragma unroll
   for (int c = 0; c < kMaxV; ++c) num[c] = 0.0f;
   visit(listed, d2_at, tau2, [&](int i, float d2) {
     if (d2 <= tau2) {
+      // the slot's values (an empty slot's are 0), loaded ahead of the
+      // weight that they are summed with
+      float v[kMaxV];
+#pragma unroll
+      for (int c = 0; c < kMaxV; ++c) v[c] = 0.0f;
+      if (i < runs.n) {
+        const float* p = in.values + runs.sorted(i) * V;
+#pragma unroll
+        for (int c = 0; c < kMaxV; ++c) {
+          if (c < V) v[c] = p[c];
+        }
+      }
       const float d = __fsqrt_rn(fmaxf(d2, 0.0f));
       float w;
-      if (mode == kIdw) {
-        const float p = power == 2.0f ? __fmul_rn(d, d) : powf(d, power);
+      if (g.mode == kIdw) {
+        const float p = g.power == 2.0f ? __fmul_rn(d, d) : powf(d, g.power);
         w = __frcp_rn(__fadd_rn(p, kEps));
       } else {
         w = __fmul_rn(__frcp_rn(__fadd_rn(d, kEps)),
@@ -672,9 +937,7 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
       den = __fadd_rn(den, w);
 #pragma unroll
       for (int c = 0; c < kMaxV; ++c) {
-        if (c < V) {
-          num[c] = __fadd_rn(num[c], __fmul_rn(w, vals[c * stride + i]));
-        }
+        if (c < V) num[c] = __fadd_rn(num[c], __fmul_rn(w, v[c]));
       }
     }
   });
@@ -693,58 +956,63 @@ fused_kernel(const float* __restrict__ cand, const float* __restrict__ qx_all,
   }
 }
 
-size_t shared_bytes(int C, int Bt, int S, int L) {
+size_t shared_bytes(int C, int Bt, int S, int L, int R) {
   const size_t n_chunks = (static_cast<size_t>(C) + kChunk - 1) / kChunk;
   const size_t warps = (static_cast<size_t>(Bt) + kWarp - 1) / kWarp;
   return 2 * n_chunks * sizeof(float4) +
          3 * static_cast<size_t>(C) * sizeof(float) +
-         (static_cast<size_t>(S) * Bt + static_cast<size_t>(L) * warps) *
+         static_cast<size_t>(R) * sizeof(int) +
+         n_chunks * sizeof(unsigned) +
+         (n_chunks + static_cast<size_t>(S) * Bt +
+          static_cast<size_t>(L) * warps) *
              sizeof(unsigned short);
 }
 
 }  // namespace
 
-// Launches the kernel over n_blocks·n_sub CTAs of Bt threads on `stream`
-// (a cudaStream_t), with 32·⌈C/32⌉ + 12·C + 2·S·Bt + 2·L·⌈Bt/32⌉ bytes of
-// dynamic shared memory (the chunks' boxes, the panel, a u16 shortlist of
-// S entries per thread and a u16 list of L entries per warp; S < 16: no
-// shortlists, L = 0: no warp lists). (sz, sy, sx) is the sub-tile's shape
-// in nodes, Bt = sz·sy·sx in the (tz, ty, tx) order of the queries and
-// the output. tau2 (n_blocks·n_sub·Bt f32) and counts (four u64: threads
-// without a shortlist, the slots on the warps' lists, warps that passed
-// over the panel, threads whose τ² crossed their shortlist's last bucket)
-// may be null. Returns the cudaError_t of the launch; 0 is
-// success.
-extern "C" int fused_grid_knn_launch(const float* cand, const float* qx,
-                                     const float* qy, const float* qz,
+// Launches the kernel over g->n_blocks·g->n_sub CTAs of sz·sy·sx threads
+// on `stream` (a cudaStream_t), with 32·C/32 + 12·C + 4·R + 6·C/32 +
+// 2·S·Bt + 2·L·⌈Bt/32⌉ bytes of dynamic shared memory (C a multiple of
+// 32, R = mcz·mcy: the chunks' boxes, the panel, the runs' table, the
+// chunks' run starts and first runs, a u16 shortlist of S entries per
+// thread and a u16 list of L entries per warp; S < 16: no shortlists, L =
+// 0: no warp lists). out is
+// (n_blocks·n_sub, 8, Bt) f32, Bt = sz·sy·sx in the (tz, ty, tx) order.
+// tau2 (n_blocks·n_sub·Bt f32) and counts (five u64: threads without a
+// shortlist, the slots on the warps' lists, warps that passed over the
+// panel, threads whose τ² crossed their shortlist's last bucket, the real
+// candidates staged, once per block) may be null. Returns the cudaError_t
+// of the launch; 0 is success.
+extern "C" int fused_grid_knn_launch(const Inputs* in, const Geometry* g,
                                      float* out, float* tau2,
-                                     unsigned long long* counts, int n_blocks,
-                                     int C, int n_sub, int Bt, int k, int V,
-                                     int mode, float power, float m2, int S,
-                                     int L, int sz, int sy, int sx,
+                                     unsigned long long* counts,
                                      void* stream) {
-  if (C > 65536 || S < 0 || L < 0 || k < 1) {
+  const int Bt = g->sz * g->sy * g->sx;
+  const int R = g->mcz * g->mcy;
+  if (g->C <= 0 || g->C > 65536 || g->C % kChunk != 0 || g->S < 0 ||
+      g->L < 0 || g->k < 1 ||
+      Bt < 1 || Bt > 1024 || R < 1 || R > 65536 || g->n_sub < 1 ||
+      g->V < 1 || g->V > kMaxV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = shared_bytes(C, Bt, S, L);
+  const size_t smem = shared_bytes(g->C, Bt, g->S, g->L, R);
   auto kernel = Bt <= 256 ? fused_kernel<256, 3> : fused_kernel<1024, 1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned n_rows = static_cast<unsigned>(n_blocks) * n_sub;
+  const unsigned n_rows = static_cast<unsigned>(g->n_blocks) * g->n_sub;
   kernel<<<n_rows, Bt, smem, static_cast<cudaStream_t>(stream)>>>(
-      cand, qx, qy, qz, out, tau2, counts, n_blocks, C, n_sub, k, V, mode,
-      power, m2, S, L, sz, sy, sx);
+      *in, *g, out, tau2, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The CTAs of Bt threads with the launch's shared memory for (C, S, L)
+// The CTAs of Bt threads with the launch's shared memory for (C, S, L, R)
 // that one SM of the current device holds at once, in *ctas. Returns the
 // cudaError_t; 0 is success.
-extern "C" int fused_grid_knn_ctas_per_sm(int C, int Bt, int S, int L,
+extern "C" int fused_grid_knn_ctas_per_sm(int C, int Bt, int S, int L, int R,
                                           int* ctas) {
-  const size_t smem = shared_bytes(C, Bt, S, L);
+  const size_t smem = shared_bytes(C, Bt, S, L, R);
   auto kernel = Bt <= 256 ? fused_kernel<256, 3> : fused_kernel<1024, 1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

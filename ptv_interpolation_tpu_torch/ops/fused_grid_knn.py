@@ -1,5 +1,6 @@
-"""Fused two-phase grid kNN: compacted candidate gather (torch) + a
-τ-bisection weighted-sum kernel (CUDA).
+"""Fused two-phase grid kNN: a τ-bisection weighted-sum kernel (CUDA)
+over each grid block's candidates, gathered (plain version) or staged by
+the kernel itself from the cell list.
 
 Counterpart of ``ptv_interpolation_tpu/ops/fused_grid_knn.py``, with the
 same stages and the same intermediate layouts, so each one compares like
@@ -7,16 +8,22 @@ with like against the JAX package:
 
 * **Phase 1** gathers each grid block's candidate rows once into a
   compacted panel ``(8, n_blocks·C)`` — rows x, y, z, u, v, w, 0, 0;
-  empty slots hold 1e19 sentinel coordinates and zero values.
-* **Phase 2** (:func:`_fused_eval`) computes, for every grid node of a
-  sub-tile of Bt nodes, its k-th-distance threshold τ² by 24 halvings of
-  [0, margin²], the IDW or sibson weights of the selected candidates, and
-  the normalised per-channel sums. On a CUDA tensor it launches the
-  hand-written kernel ``csrc/fused_grid_knn.cu``; on a CPU tensor it runs
-  :func:`_fused_eval_plain`, a dense transcription of the same math.
-* **Repair** (:func:`fused_repair`) reruns phase 1 and the same kernel at
-  1.6× the margin over only the blocks that hold uncovered nodes (the
-  streaming subset evaluator where that panel is too wide); its plan
+  empty slots hold 1e19 sentinel coordinates and zero values — and the
+  nodes' query rows (:func:`_compact_gather`, :func:`_build_queries`).
+* **Phase 2** computes, for every grid node of a sub-tile of Bt nodes,
+  its k-th-distance threshold τ² by 24 halvings of [0, margin²], the IDW
+  or sibson weights of the selected candidates, and the normalised
+  per-channel sums: :func:`_fused_eval_plain`, a dense transcription of
+  the math over phase 1's panel.
+* :func:`_fused_eval_cells` runs both over the blocks of a grid. On a
+  CUDA device it launches the hand-written kernel
+  ``csrc/fused_grid_knn.cu``, which stages each block's candidates from
+  the cell list and forms its nodes' coordinates itself (no panel, no
+  query rows); on the CPU it runs phase 1 and :func:`_fused_eval`, the
+  plain version.
+* **Repair** (:func:`fused_repair`) reruns the same kernel at 1.6× the
+  margin over only the blocks that hold uncovered nodes (the streaming
+  subset evaluator where that panel is too wide); its plan
   (:func:`_repair_plan`) also serves the sharded path's per-slab repair.
 """
 
@@ -178,24 +185,40 @@ def _build_queries(axes, block: Tuple[int, int, int],
     qx = rows(x_ax, ibx, bx, (n, 1, 1, 1, bx))
     qy = rows(y_ax, iby, by, (n, 1, 1, by, 1))
     qz = rows(z_ax, ibz, bz, (n, n_sub, sz, 1, 1))
-    return tuple(q.reshape(n * n_sub, 1, Bt) for q in (qx, qy, qz))
+    # contiguous rows: at sz = 1 the reshape of an expanded view is a view
+    return tuple(q.reshape(n * n_sub, 1, Bt).contiguous()
+                 for q in (qx, qy, qz))
 
 
 # ---------------------------------------------------------------------------
 # Phase 2: the τ-bisection weighted-sum kernel and its plain version
 # ---------------------------------------------------------------------------
 
+class _Inputs(ctypes.Structure):
+    """``Inputs`` of ``csrc/fused_grid_knn.cu``: device pointers."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "starts", "points", "values", "x_ax", "y_ax", "z_ax", "origin",
+        "inv_cell", "ids")]
+
+
+class _Geometry(ctypes.Structure):
+    """``Geometry`` of ``csrc/fused_grid_knn.cu``."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n_blocks", "nby", "nbx", "n_sub", "sz", "sy", "sx", "ncx", "ncy",
+        "ncz", "mcz", "mcy", "mcx", "C", "k", "V", "mode", "S", "L")] + [
+        (name, ctypes.c_float) for name in ("power", "margin", "m2")]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib():
     from ptv_interpolation_tpu_torch.ops.cuda_build import load_library
     lib = load_library("fused_grid_knn")
     lib.fused_grid_knn_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5
-        + [ctypes.c_void_p])
+        [ctypes.POINTER(_Inputs), ctypes.POINTER(_Geometry)]
+        + [ctypes.c_void_p] * 4)
     lib.fused_grid_knn_launch.restype = ctypes.c_int
     lib.fused_grid_knn_ctas_per_sm.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
     lib.fused_grid_knn_ctas_per_sm.restype = ctypes.c_int
     lib.fused_grid_knn_error_string.argtypes = [ctypes.c_int]
     lib.fused_grid_knn_error_string.restype = ctypes.c_char_p
@@ -225,19 +248,21 @@ def _kernel1_ctas(threads: int) -> int:
     return max(1, (768 if threads <= 256 else 1024) // threads)
 
 
-def _kernel1_plan(C: int, threads: int, k: int) -> Tuple[int, int, int]:
+def _kernel1_plan(C: int, threads: int, k: int,
+                  rows: int) -> Tuple[int, int, int]:
     """Shared-memory plan of one CTA of kernel 1: ``threads`` threads
-    over a panel of C slots (12·C bytes of x, y, z and a 32-byte bounding
-    box per 32 slots), a shortlist of S entries per thread as
-    :func:`_shortlist_plan` plans it for a count of k, then, in what is
-    left of an SM's shared memory at the CTAs per SM that the rest and
-    the registers allow, a u16 list of L ≤ C entries per warp. L = 0 (no
-    warp lists: every warp passes over the panel) where fewer than
-    ``_WARP_LIST_MIN`` entries fit or the threads do not fill whole warps.
-    Returns ``(S, L, bytes)``, bytes being the dynamic shared memory the
-    launch asks for."""
+    over a panel of C slots staged from ``rows`` = mcz·mcy CSR rows (12·C
+    bytes of x, y, z, a 32-byte bounding box and 6 bytes of the runs'
+    table for each 32 slots, and 4 bytes a row), a
+    shortlist of S entries per thread as :func:`_shortlist_plan` plans it
+    for a count of k, then, in what is left of an SM's shared memory at
+    the CTAs per SM that the rest and the registers allow, a u16 list of
+    L ≤ C entries per warp. L = 0 (no warp lists: every warp passes over
+    the panel) where fewer than ``_WARP_LIST_MIN`` entries fit or the
+    threads do not fill whole warps. Returns ``(S, L, bytes)``, bytes
+    being the dynamic shared memory the launch asks for."""
     S, base = _shortlist_plan(C, threads, k,
-                              panel=12 * C + 32 * -(-C // 32))
+                              panel=12 * C + 38 * -(-C // 32) + 4 * rows)
     if threads % _WARP:
         return S, 0, base
     warps = threads // _WARP
@@ -249,36 +274,36 @@ def _kernel1_plan(C: int, threads: int, k: int) -> Tuple[int, int, int]:
     return S, L, base + 2 * L * warps
 
 
+def _check_eval(mode: str, V: int, k: int):
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'idw' or 'sibson', got {mode!r}")
+    if not 1 <= V <= 5:
+        raise ValueError(f"V={V} channels: the panel holds 1 to 5")
+    if k < 1:
+        raise ValueError(f"k={k}: need at least one neighbour")
+
+
 def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                 qy_all: torch.Tensor, qz_all: torch.Tensor,
                 block: Tuple[int, int, int], sz: int, k: int, V: int, C: int,
                 mode: str, power: float,
                 tau2: torch.Tensor | None = None) -> torch.Tensor:
-    """Phase 2 over every (block, sub-tile) row: returns (n_blocks, n_sub,
-    8, Bt) f32 with rows ``out[c] = Σw·v_c / max(Σw, 1e-37)`` for the V
-    channels, ``out[V] = Σw`` where the node is covered (≥ k candidates
-    within the margin, ``m2`` = margin² as an f32 value) and 0 where it
-    is not, and zeros after.
+    """Phase 2 over every (block, sub-tile) row of phase 1's panel, on
+    the CPU: returns (n_blocks, n_sub, 8, Bt) f32 with rows ``out[c] =
+    Σw·v_c / max(Σw, 1e-37)`` for the V channels, ``out[V] = Σw`` where
+    the node is covered (≥ k candidates within the margin, ``m2`` =
+    margin² as an f32 value) and 0 where it is not, and zeros after.
 
     ``cand`` is the (8, n_blocks·C) panel of :func:`_compact_gather`,
     ``q*_all`` the (n_blocks·n_sub, 1, Bt) rows of :func:`_build_queries`.
-    On CUDA tensors this launches the kernel (counters ``kernel1.launches``
-    and four device counts: ``kernel1.overflow``, the nodes whose
-    shortlist did not fit; ``kernel1.list_slots``, the slots on the
-    warps' lists; ``kernel1.list_overflow``, the warps whose list did not
-    fit and which passed over the panel; ``kernel1.edge_spill``, the nodes
-    whose τ² lay past the last bucket of their shortlist, which summed
-    over their warp's list instead); on CPU tensors it runs
-    :func:`_fused_eval_plain`. Either runs in the span
-    ``ptv.grid.kernel1``. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32,
-    contiguous, on cand's device) receives every node's τ²."""
+    It runs :func:`_fused_eval_plain` in the span ``ptv.grid.kernel1``;
+    the kernel is reached through :func:`_fused_eval_cells`, which needs
+    no panel. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32, contiguous,
+    on cand's device) receives every node's τ²."""
     bz, by, bx = block
     n_sub = bz // sz
     Bt = sz * by * bx
-    if mode not in _MODES:
-        raise ValueError(f"mode must be 'idw' or 'sibson', got {mode!r}")
-    if not 1 <= V <= 5:
-        raise ValueError(f"V={V} channels: the panel holds 1 to 5")
+    _check_eval(mode, V, k)
     if cand.dtype != torch.float32 or cand.dim() != 2 or cand.shape[0] != 8 \
             or C <= 0 or cand.shape[1] % C:
         raise ValueError(f"cand must be (8, n_blocks*{C}) float32, got "
@@ -291,45 +316,127 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
                              f"float32, got {tuple(q.shape)} {q.dtype}")
         if q.device != cand.device:
             raise ValueError("cand and queries must be on one device")
-    if k < 1:
-        raise ValueError(f"k={k}: need at least one neighbour")
-    if tau2 is not None and (
-            tau2.dtype != torch.float32 or tuple(tau2.shape) != (
-                n_blocks * n_sub, Bt) or tau2.device != cand.device
-            or not tau2.is_contiguous()):
-        raise ValueError(f"tau2 must be a contiguous ({n_blocks * n_sub}, "
-                         f"{Bt}) float32 tensor on {cand.device}")
+    _check_tau2(tau2, n_blocks * n_sub, Bt, cand.device)
+    if cand.device.type != "cpu":
+        raise ValueError(f"unsupported device {cand.device}: the panel's "
+                         f"evaluation is the CPU's plain version")
     with span("ptv.grid.kernel1", n_blocks=n_blocks, C=C):
-        if cand.device.type == "cpu":
-            if tau2 is not None:
-                tau2.copy_(_fused_tau2_plain(m2, cand, qx_all, qy_all, qz_all,
-                                             block, sz, k, C))
-            return _fused_eval_plain(m2, cand, qx_all, qy_all, qz_all, block,
-                                     sz, k, V, C, mode, power)
-        if cand.device.type != "cuda":
-            raise ValueError(f"unsupported device {cand.device}")
-        if not all(t.is_contiguous() for t in (cand, qx_all, qy_all, qz_all)):
-            raise ValueError("cand and queries must be contiguous")
-        if Bt > 1024:
-            raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
-        S, L, smem = _kernel1_plan(C, Bt, int(k))
-        if smem > _SMEM_BYTES:
-            raise ValueError(f"panel width C={C} exceeds the kernel's shared "
-                             f"memory (13·C bytes ≤ 227 KB)")
-        lib = _kernel_lib()
+        if tau2 is not None:
+            tau2.copy_(_fused_tau2_plain(m2, cand, qx_all, qy_all, qz_all,
+                                         block, sz, k, C))
+        return _fused_eval_plain(m2, cand, qx_all, qy_all, qz_all, block,
+                                 sz, k, V, C, mode, power)
+
+
+def _check_tau2(tau2, n_rows: int, Bt: int, device):
+    if tau2 is not None and (
+            tau2.dtype != torch.float32 or tuple(tau2.shape) != (n_rows, Bt)
+            or tau2.device != device or not tau2.is_contiguous()):
+        raise ValueError(f"tau2 must be a contiguous ({n_rows}, {Bt}) "
+                         f"float32 tensor on {device}")
+
+
+def _fused_eval_cells(cells: CellList, values_sorted: torch.Tensor, axes,
+                      margin: float, m2: float, block: Tuple[int, int, int],
+                      grid_shape: Tuple[int, int, int],
+                      mc: Tuple[int, int, int], C: int, k: int, mode: str,
+                      power: float, ids=None,
+                      tau2: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 1 over the blocks ``ids`` (flat block indices, a host array
+    or a device tensor, in this order; every block where None) of the
+    ``grid_shape`` grid whose axes, padded to whole blocks, are ``axes``:
+    returns (n_blocks, n_sub, 8, Bt) f32, the rows :func:`_fused_eval`
+    gives on phase 1's panel of width ``C`` at ``margin`` (an f32 region
+    of ``mc`` cells) and on its query rows. ``m2`` is the f32 margin² of
+    the coverage and the halvings.
+
+    On a CUDA device it launches ``csrc/fused_grid_knn.cu``, which stages
+    each block's candidates from ``cells`` and ``values_sorted`` and forms
+    its nodes' coordinates from the axes: the same slots in the same
+    order, so the same d², τ² and sums, with no panel in device memory.
+    Counters: ``kernel1.launches``; and five device counts:
+    ``kernel1.overflow``, the nodes whose shortlist did not fit;
+    ``kernel1.list_slots``, the slots on the warps' lists;
+    ``kernel1.list_overflow``, the warps whose list did not fit and which
+    passed over the panel; ``kernel1.edge_spill``, the nodes whose τ² lay
+    past the last bucket of their shortlist, which summed over their
+    warp's list instead; ``kernel1.staged_slots``, the real candidates
+    staged, once per block. On the CPU it runs phase 1 (the span
+    ``ptv.grid.panel``) and :func:`_fused_eval`. Either runs in the span
+    ``ptv.grid.kernel1``. ``tau2`` (optional, (n_blocks·n_sub, Bt) f32,
+    contiguous, on the cells' device) receives every node's τ²."""
+    bz, by, bx = block
+    nz, ny, nx = grid_shape
+    dims = (_block_counts(nz, bz), _block_counts(ny, by),
+            _block_counts(nx, bx))
+    sz = _pick_sz(bz, by, bx)
+    V = values_sorted.shape[1]
+    dev = cells.device
+    if dev.type == "cpu":
+        with span("ptv.grid.panel"):
+            cand = _compact_gather(cells, values_sorted, axes, margin, block,
+                                   grid_shape, mc, C, ids=ids)
+            q = _build_queries(axes, block, dims, sz, ids=ids, device=dev)
+        return _fused_eval(m2, cand, *q, block, sz, k, V, C, mode, power,
+                           tau2=tau2)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_eval(mode, V, k)
+    n_sub = bz // sz
+    Bt = sz * by * bx
+    if Bt > 1024:
+        raise ValueError(f"sub-tile of {Bt} nodes exceeds 1024 threads")
+    if C <= 0 or C % 32:
+        raise ValueError(f"panel width C={C} must be a positive multiple "
+                         f"of 32")
+    if ids is not None:
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=dev).contiguous()
+    n_blocks = dims[0] * dims[1] * dims[2] if ids is None else ids.shape[0]
+    _check_tau2(tau2, n_blocks * n_sub, Bt, dev)
+    store = (cells.points_sorted, values_sorted, cells.origin,
+             cells.inv_cell)
+    if (cells.starts.dtype != torch.int32 or cells.starts.device != dev
+            or not cells.starts.is_contiguous()
+            or any(t.dtype != torch.float32 or t.device != dev
+                   or not t.is_contiguous() for t in store)):
+        raise ValueError("the cell list's starts (int32), points, values, "
+                         "origin and inverse cell size (float32) must be "
+                         "contiguous, on one device")
+    rows = mc[0] * mc[1]
+    S, L, smem = _kernel1_plan(C, Bt, int(k), rows)
+    if smem > _SMEM_BYTES:
+        raise ValueError(f"panel width C={C} over {rows} rows exceeds the "
+                         f"kernel's shared memory (227 KB)")
+    with span("ptv.grid.kernel1", n_blocks=n_blocks, C=C):
         out = torch.empty((n_blocks, n_sub, 8, Bt), dtype=torch.float32,
-                          device=cand.device)
+                          device=dev)
         if n_blocks == 0:
             return out
-        counts = torch.zeros(4, dtype=torch.int64, device=cand.device)
-        with torch.cuda.device(cand.device):
-            stream = torch.cuda.current_stream(cand.device).cuda_stream
+        lib = _kernel_lib()
+        # the three padded axes in one upload, from pinned memory so that
+        # the host does not wait for the stream
+        ax = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.float32) for a in axes])).pin_memory().to(
+                dev, non_blocking=True)
+        at = np.cumsum([0] + [len(a) for a in axes[:2]]) * 4
+        counts = torch.zeros(5, dtype=torch.int64, device=dev)
+        inputs = _Inputs(
+            cells.starts.data_ptr(), cells.points_sorted.data_ptr(),
+            values_sorted.data_ptr(), ax.data_ptr() + int(at[0]),
+            ax.data_ptr() + int(at[1]), ax.data_ptr() + int(at[2]),
+            cells.origin.data_ptr(), cells.inv_cell.data_ptr(),
+            None if ids is None else ids.data_ptr())
+        ncx, ncy, ncz = cells.dims
+        geometry = _Geometry(
+            n_blocks, dims[1], dims[2], n_sub, sz, by, bx, ncx, ncy, ncz,
+            *mc, C, int(k), V, _MODES[mode], S, L, float(power),
+            float(np.float32(margin)), float(m2))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fused_grid_knn_launch(
-                cand.data_ptr(), qx_all.data_ptr(), qy_all.data_ptr(),
-                qz_all.data_ptr(), out.data_ptr(),
+                ctypes.byref(inputs), ctypes.byref(geometry), out.data_ptr(),
                 None if tau2 is None else tau2.data_ptr(), counts.data_ptr(),
-                n_blocks, C, n_sub, Bt, int(k), V, _MODES[mode], float(power),
-                float(m2), S, L, sz, by, bx, stream)
+                stream)
         if err != 0:
             msg = lib.fused_grid_knn_error_string(err).decode()
             raise RuntimeError(f"fused_grid_knn kernel launch failed: {msg} "
@@ -339,6 +446,7 @@ def _fused_eval(m2: float, cand: torch.Tensor, qx_all: torch.Tensor,
         count("kernel1.list_slots", counts[1:2])
         count("kernel1.list_overflow", counts[2:3])
         count("kernel1.edge_spill", counts[3:4])
+        count("kernel1.staged_slots", counts[4:5])
         return out
 
 
@@ -542,21 +650,11 @@ def fused_block_sums(cells: CellList, values_sorted, axes, margin: float,
 def _fused_main_pass(cells: CellList, values_sorted, axes, margin: float,
                      block, grid_shape, mc, C: int, k: int, mode: str,
                      power: float) -> torch.Tensor:
-    """Phase 1 (the span ``ptv.grid.panel``) and kernel 1's launch over
-    every block: the kernel's (n_blocks, n_sub, 8, Bt) rows."""
-    bz, by, bx = block
-    nz, ny, nx = grid_shape
-    dims = (_block_counts(nz, bz), _block_counts(ny, by),
-            _block_counts(nx, bx))
-    sz = _pick_sz(bz, by, bx)
-    with span("ptv.grid.panel"):
-        cand = _compact_gather(cells, values_sorted, axes, margin, block,
-                               grid_shape, mc, C)
-        qx, qy, qz = _build_queries(axes, block, dims, sz,
-                                    device=cells.device)
-    return _fused_eval(np.float32(margin * margin), cand, qx, qy, qz, block,
-                       sz, int(k), values_sorted.shape[1], C, mode,
-                       float(power))
+    """Kernel 1 over every block (:func:`_fused_eval_cells`, m2 the f32
+    rounding of margin²): the kernel's (n_blocks, n_sub, 8, Bt) rows."""
+    return _fused_eval_cells(cells, values_sorted, axes, margin,
+                             np.float32(margin * margin), block, grid_shape,
+                             mc, C, int(k), mode, float(power))
 
 
 def _fused_reassemble(out: torch.Tensor, block, grid_shape, V: int):
@@ -678,9 +776,9 @@ def _repair_survey(den: torch.Tensor, skip, block, dims,
 
 
 def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
-                        axes2, margin2: float, ids, block, dims, sz: int,
-                        k: int, V: int, C: int, mode: str, power: float,
-                        grid_shape, mc):
+                        axes2, margin2: float, ids, block, dims, k: int,
+                        V: int, C: int, mode: str, power: float, grid_shape,
+                        mc):
     """The repair's evaluation over the blocks ``ids`` (a host array or a
     device tensor) at the widened margin: kernel 1 on their panel of
     width ``C`` when it fits :data:`_REPAIR_PANEL_MAX`, else the streaming
@@ -699,15 +797,12 @@ def _fused_repair_apply(field, den, skip, cells: CellList, values_sorted,
     den_eff = den if skip is None else torch.where(skip, 1.0, den)
 
     if C <= _REPAIR_PANEL_MAX:
-        with span("ptv.grid.panel"):
-            cand = _compact_gather(cells, values_sorted, axes2, margin2,
-                                   block, grid_shape, mc, C, ids=ids)
-            qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids,
-                                        device=dev)
         # f32 product, as the JAX package forms margin2² on the device
         m2 = np.float32(margin2) * np.float32(margin2)
-        sub = _fused_eval(m2, cand, qx, qy, qz, block, sz, k, V, C, mode,
-                          power)
+        sub = _fused_eval_cells(cells, values_sorted, axes2, margin2, m2,
+                                block, grid_shape, mc, C, k, mode, power,
+                                ids=ids)
+        sz = _pick_sz(bz, by, bx)
         # (n_sel, n_sub, 8, Bt) → (n_sel, B, 8) rows in (tz, ty, tx) order
         rows = sub.reshape(n_sel, bz // sz, 8, sz, by * bx)
         rows = rows.permute(0, 1, 3, 4, 2).reshape(n_sel, B, 8)
@@ -781,8 +876,8 @@ def fused_repair(field, den, skip_mask, cells: CellList, values_sorted,
                                            site="repair.capacity"))
     res = _fused_repair_apply(
         field, den, skip, cells, values_sorted, axes2, margin2, ids,
-        block, dims, _pick_sz(bz, by, bx), int(k), field.shape[-1], C, mode,
-        float(power), grid.shape, mc2)
+        block, dims, int(k), field.shape[-1], C, mode, float(power),
+        grid.shape, mc2)
     if res is None:
         return None
     field2, den_out, n_rep = res

@@ -126,7 +126,7 @@ def sharded_interpolate_field(points, values, grid: Grid, mesh: Mesh,
 def _slab_repair(mesh: Mesh, field, den, survey, skip_l, cells_g, cells_l,
                  values_l, grid: Grid, x_ax, y_ax, z_slab, z_pad,
                  margin: float, block, dims_slab, slab_shape, nz_pad: int,
-                 k: int, V: int, sz: int, method: str, power: float):
+                 k: int, V: int, method: str, power: float):
     """Per-slab repair of uncovered nodes — the sharded form of
     ``fused_grid_knn.fused_repair``, on its plan (``_repair_plan``, the
     void rule and the panel cap). Each eligible rank re-evaluates its own
@@ -170,7 +170,7 @@ def _slab_repair(mesh: Mesh, field, den, survey, skip_l, cells_g, cells_l,
             np.int64)
         field, den, n_rep = fg._fused_repair_apply(
             field, den, skip_l, cells_l, values_l, (x_ax, y_ax, z_slab),
-            margin2, ids, tuple(block), dims_slab, sz, int(k), V, C2, method,
+            margin2, ids, tuple(block), dims_slab, int(k), V, C2, method,
             float(power), slab_shape, mc2)
     else:
         n_rep = 0
@@ -299,7 +299,6 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         C = fg._panel_width(fg._block_total_capacity(
             cells, (x_ax, y_ax, z_pad), margin, block,
             (nz_pad, grid.ny, grid.nx), mc))
-        sz = fg._pick_sz(*block)
         nblk_cap = min(fg._NBLK_MAX, dims_slab[0] * dims_slab[1]
                        * dims_slab[2])
         # survey skip: the caller's skip mask and the padded z rows (they
@@ -320,7 +319,7 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         field, den, n_fix, n_rep, n_left = _slab_repair(
             mesh, field, den, survey, skip_l, cells, cells_l, store.values_l,
             grid, x_ax, y_ax, z_slab, z_pad, margin, block, dims_slab,
-            slab_shape, nz_pad, k, V, sz, method, float(power))
+            slab_shape, nz_pad, k, V, method, float(power))
         stats.update(uncovered=[int(n) for n in n_fix],
                      repaired=[int(n) for n in n_rep], n_left=n_left)
         out8 = torch.cat([field, den[..., None]], dim=-1)

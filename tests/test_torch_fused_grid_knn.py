@@ -4,6 +4,8 @@ the kernel's plain version against the Pallas kernel in interpret mode,
 and the repair stage. The CUDA kernel itself is held against its plain
 version in ``test_torch_fused_grid_knn_gpu.py``."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from ptv_interpolation_tpu.ops import grid_knn as jgk
 from ptv_interpolation_tpu_torch.grid import create_grid
 from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
 from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+from ptv_interpolation_tpu_torch.utils import capture
 import torch_port_fixtures as fx
 
 torch.set_num_threads(2)
@@ -306,16 +309,92 @@ def test_fused_eval_input_checks():
         tfg._fused_eval(1.0, meta, qm, qm, qm, block, sz, 4, 3, C, "idw", 2.0)
 
 
+@pytest.mark.parametrize("block", [(3, 8, 16), (8, 16, 16)])
+@pytest.mark.parametrize("subset", [False, True])
+def test_build_queries_contiguous_at_one_deep_subtiles(block, subset):
+    """Where ``_pick_sz`` gives sz = 1 the query rows are contiguous (a
+    reshape of an expanded view gave a view there) and equal the JAX
+    package's bit for bit."""
+    s = _jax_setup(fx.uniform(), 10, block)
+    assert s["sz"] == tfg._pick_sz(*block) == 1
+    n_blocks = int(np.prod(s["dims"]))
+    ids = np.array([n_blocks - 1, 0, 2]) if subset else None
+    _, want_q = _jax_panel(s, block, ids)
+    got_q = tfg._build_queries(s["axes"], block, s["dims"], 1, ids=ids)
+    for g, w in zip(got_q, want_q):
+        assert g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("cloud,block,repair", [
+    ("corner_slab", (2, 4, 8), False), ("ragged", (4, 4, 8), False),
+    ("duplicated", (2, 4, 8), False), ("corner_slab", (4, 8, 16), True),
+    ("duplicated", (3, 8, 16), True), ("uniform", (8, 16, 16), True),
+])
+@pytest.mark.parametrize("mode", ["sibson", "idw"])
+def test_fused_eval_cells_plain_path_matches_fused_eval(cloud, block, repair,
+                                                        mode):
+    """On the CPU the kernel's entry runs phase 1 (span ``ptv.grid.panel``)
+    and the plain version (span ``ptv.grid.kernel1``): its rows and τ²
+    equal what ``_fused_eval`` gives on phase 1's panel, over every block
+    at the main margin, and over the last and the first block at the
+    repair's."""
+    k = 10
+    pts, vals, bounds, n = getattr(fx, cloud)()
+    dims = [-(-a // b) for a, b in zip(create_grid(bounds, n).shape, block)]
+    ids = np.array([int(np.prod(dims)) - 1, 0]) if repair else None
+    s = fx.kernel1_setup(getattr(fx, cloud)(), block, k, ids=ids,
+                         repair=repair)
+    m2, cand, q, sz, C = fx.kernel1_phase1(s)
+    Bt = q[0].shape[2]
+    tau2 = torch.empty((q[0].shape[0], Bt))
+    with capture() as rec:
+        got = fx.kernel1_cells(s, k, mode, tau2=tau2)
+    assert [r["name"] for r in rec.spans()] == ["ptv.grid.panel",
+                                                "ptv.grid.kernel1"]
+    want_tau2 = torch.empty_like(tau2)
+    want = tfg._fused_eval(m2, cand, *q, block, sz, k, 3, C, mode, 2.0,
+                           tau2=want_tau2)
+    assert got.shape == (q[0].shape[0] // (block[0] // sz), block[0] // sz,
+                         8, Bt)
+    assert torch.equal(got, want)
+    assert torch.equal(tau2, want_tau2)
+    assert bool((got[:, :, 3] > 0).any())
+
+
+def test_fused_eval_cells_input_checks():
+    """The entry refuses what the kernel cannot run, on any device."""
+    s = fx.kernel1_setup(fx.uniform(), (2, 4, 8), 10)
+    with pytest.raises(ValueError, match="mode"):
+        fx.kernel1_cells(s, 10, "rbf")
+    with pytest.raises(ValueError, match="neighbour"):
+        fx.kernel1_cells(s, 0, "idw")
+    with pytest.raises(ValueError, match="tau2"):
+        fx.kernel1_cells(s, 10, "idw", tau2=torch.empty(3))
+    meta = dict(s, cells=dataclasses.replace(
+        s["cells"], points_sorted=s["cells"].points_sorted.to("meta")))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fx.kernel1_cells(meta, 10, "idw")
+
+
+def _k1_staging(C, rows):
+    """Kernel 1's bytes beside its shortlists and lists for a panel of C
+    slots (a multiple of 32) staged from ``rows`` CSR rows: x, y, z, and
+    a box, a first run and a mask of run starts per 32 slots, and the
+    runs' table."""
+    return 12 * C + 38 * (C // 32) + 4 * rows
+
+
 @pytest.mark.parametrize("C", [128, 1920, 4608, 8192])
 @pytest.mark.parametrize("k", [1, 30, 50, 300])
 def test_shortlist_plan_fits_shared_memory(C, k):
     """Both kernels' shortlist plans (256 threads; the grid kernel counts
-    to k over 12·C bytes of coordinates and a box per 32 slots, the MAD
+    to k over the staged panel of 100 CSR rows, the headline's, the MAD
     kernel to k+1 over 16·C) stay within the 232 448 bytes a CTA may use,
     and keep the shortlists wherever they fit."""
-    for need, panel in ((k, 13 * C), (k + 1, 16 * C)):  # C: a multiple of 32
-        if panel == 13 * C:
-            S, L, smem = tfg._kernel1_plan(C, 256, need)
+    for need, panel in ((k, _k1_staging(C, 100)), (k + 1, 16 * C)):
+        if panel != 16 * C:
+            S, L, smem = tfg._kernel1_plan(C, 256, need, 100)
             smem -= 2 * L * 8
         else:
             S, smem = tfg._shortlist_plan(C, 256, need)
@@ -323,39 +402,41 @@ def test_shortlist_plan_fits_shared_memory(C, k):
         assert smem == panel + 2 * S * 256
         fits = panel + 2 * (need + 32) * 256 <= 232448
         assert S == (need + 32 if fits else 0)
-    assert tfg._kernel1_plan(1920, 256, 50) == (
-        82, 616, 13 * 1920 + 41984 + 16 * 616)
-    assert tfg._kernel1_plan(8192, 256, 300)[0] == 0
+    assert tfg._kernel1_plan(1920, 256, 50, 100) == (
+        82, 568, _k1_staging(1920, 100) + 41984 + 16 * 568)
+    assert tfg._kernel1_plan(8192, 256, 300, 100)[0] == 0
     assert tfg._shortlist_plan(4608, 256, 31) == (63, 16 * 4608 + 32256)
 
 
 @pytest.mark.parametrize("C", [128, 1920, 3200, 8192])
 @pytest.mark.parametrize("Bt", [64, 96, 128, 256, 512, 1024])
 def test_kernel1_plan_fits_shared_memory(C, Bt):
-    """Kernel 1's plan for C slots and Bt threads: within the 232 448
-    bytes a CTA may use; the warps' lists (L ≤ C entries each, or none)
-    take only what the SM has left at the CTAs per SM that the panel, the
-    shortlists and the registers allow, so they never cost a CTA."""
+    """Kernel 1's plan for C slots, Bt threads and 100 or 400 CSR rows:
+    within the 232 448 bytes a CTA may use; the warps' lists (L ≤ C
+    entries each, or none) take only what the SM has left at the CTAs per
+    SM that the panel, the runs' table, the shortlists and the registers
+    allow, so they never cost a CTA."""
     warps = Bt // 32
     for k in (1, 50, 300):
-        S, L, smem = tfg._kernel1_plan(C, Bt, k)
-        base = 13 * C + 2 * S * Bt
-        assert smem == base + 2 * L * warps <= 232448
-        assert L == 0 or 32 <= L <= C
-        ctas = min(tfg._kernel1_ctas(Bt), 233472 // (base + 1024))
-        assert 233472 // (smem + 1024) >= ctas
+        for rows in (100, 400):
+            S, L, smem = tfg._kernel1_plan(C, Bt, k, rows)
+            base = _k1_staging(C, rows) + 2 * S * Bt
+            assert smem == base + 2 * L * warps <= 232448
+            assert L == 0 or 32 <= L <= C
+            ctas = min(tfg._kernel1_ctas(Bt), 233472 // (base + 1024))
+            assert 233472 // (smem + 1024) >= ctas
 
 
 def test_kernel1_plan_headline_and_no_list():
-    """At the headline's panel (C = 1 920, 256 threads, k = 50) 3 CTAs
-    share an SM, each warp's list holding 616 entries (the warps' lists
-    hold at most ~315); none where no list fits beside the panel and the
-    shortlists, or where the threads fill no whole warp."""
-    S, L, smem = tfg._kernel1_plan(1920, 256, 50)
-    assert (S, L) == (82, 616)
+    """At the headline's panel (C = 1 920 over 100 CSR rows, 256 threads,
+    k = 50) 3 CTAs share an SM, each warp's list holding 568 entries (the
+    warps' lists hold at most ~315); none where no list fits beside the
+    panel and the shortlists, or where the threads fill no whole warp."""
+    S, L, smem = tfg._kernel1_plan(1920, 256, 50, 100)
+    assert (S, L) == (82, 568)
     assert 233472 // (smem + 1024) == 3
-    assert tfg._kernel1_plan(8192, 256, 214)[:2] == (246, 0)
-    assert tfg._kernel1_plan(1920, 90, 50)[1] == 0
+    assert tfg._kernel1_plan(8192, 256, 210, 100)[:2] == (242, 0)
+    assert tfg._kernel1_plan(1920, 90, 50, 100)[1] == 0
     assert tfg._kernel1_ctas(256) == 3 and tfg._kernel1_ctas(1024) == 1
 
 

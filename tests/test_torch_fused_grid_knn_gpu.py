@@ -43,12 +43,12 @@ def cuda_device():
 def test_fused_kernel_matches_plain_on_gpu(cuda_device, mode, block):
     """An identical den==0 pattern, floats within rtol 1e-5 / atol 1e-6."""
     k = 10
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.corner_slab(), block, k,
-                                          cuda_device)
-    args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
+    s = fx.kernel1_setup(fx.corner_slab(), block, k, cuda_device)
+    m2, cand, q, sz, C = fx.kernel1_phase1(s)
     with capture() as rec:
-        got = tfg._fused_eval(*args)
-    want = tfg._fused_eval_plain(*args)
+        got = fx.kernel1_cells(s, k, mode)
+    want = tfg._fused_eval_plain(m2, cand, *q, block, sz, k, 3, C, mode,
+                                 2.0)
     torch.cuda.synchronize()
     assert rec.counters()["kernel1.launches"] == 1
     assert bool((want[:, :, 3] == 0).any())
@@ -57,13 +57,14 @@ def test_fused_kernel_matches_plain_on_gpu(cuda_device, mode, block):
 
 
 def test_fused_kernel_refuses_non_contiguous_input(cuda_device):
-    block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.uniform(), block, k,
-                                          cuda_device)
-    strided = torch.empty((8, 2 * cand.shape[1]), device=cuda_device)[:, ::2]
-    strided.copy_(cand)
+    k = 10
+    s = fx.kernel1_setup(fx.uniform(), (2, 4, 8), k, cuda_device)
+    vs = s["values_sorted"]
+    strided = torch.empty((vs.shape[0], 2 * vs.shape[1]),
+                          device=cuda_device)[:, ::2]
+    strided.copy_(vs)
     with pytest.raises(ValueError, match="contiguous"):
-        tfg._fused_eval(m2, strided, *q, block, sz, k, 3, C, "idw", 2.0)
+        fx.kernel1_cells(dict(s, values_sorted=strided), k, "idw")
 
 
 @pytest.mark.parametrize("cloud,mode", [
@@ -87,27 +88,32 @@ def test_grid_slice_on_gpu_matches_cpu(cuda_device, cloud, mode):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
 
 
-def _check_kernel(m2, cand, q, block, sz, k, C, mode):
-    """The kernel against its plain version: τ² bit-equal, den==0
-    identical, the values within RTOL/ATOL, ``kernel1.edge_spill`` the
-    count of :func:`_edge_spills` (at most that where some nodes have no
-    shortlist). Returns the kernel's counters (``kernel1.overflow``: the
-    nodes without a shortlist; ``kernel1.list_slots`` and
-    ``kernel1.list_overflow``: the slots on the warps' lists and the warps
-    that passed over the panel; ``kernel1.edge_spill``), and the node
-    count."""
+def _check_kernel(s, k, mode):
+    """The kernel, staging from the cell list of :func:`kernel1_setup`'s
+    ``s``, against its plain version, phase 1 and ``_fused_eval_plain``:
+    τ² bit-equal, den==0 identical, the values within RTOL/ATOL,
+    ``kernel1.staged_slots`` the count of the panel's real slots and
+    ``kernel1.edge_spill`` the count of :func:`_edge_spills` (at most that
+    where some nodes have no shortlist). Returns the kernel's counters
+    (``kernel1.overflow``: the nodes without a shortlist;
+    ``kernel1.list_slots`` and ``kernel1.list_overflow``: the slots on the
+    warps' lists and the warps that passed over the panel;
+    ``kernel1.edge_spill``), and the node count."""
+    m2, cand, q, sz, C = fx.kernel1_phase1(s)
+    block = s["block"]
     n_rows, _, Bt = q[0].shape
     tau2 = torch.empty((n_rows, Bt), device=cand.device)
-    args = (m2, cand, *q, block, sz, k, 3, C, mode, 2.0)
     with capture() as rec:
-        got = tfg._fused_eval(*args, tau2=tau2)
+        got = fx.kernel1_cells(s, k, mode, tau2=tau2)
     counts = rec.counters()
-    want = tfg._fused_eval_plain(*args)
+    want = tfg._fused_eval_plain(m2, cand, *q, block, sz, k, 3, C, mode,
+                                 2.0)
     want_tau2 = tfg._fused_tau2_plain(m2, cand, *q, block, sz, k, C)
     torch.cuda.synchronize()
     assert torch.equal(tau2, want_tau2)
     assert torch.equal(got[:, :, 3] == 0, want[:, :, 3] == 0)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert counts["kernel1.staged_slots"] == int((cand[0] < 1e18).sum())
     spills = _edge_spills(m2, cand, q, block, sz, k, C, tau2)
     if counts["kernel1.overflow"] == 0:
         assert counts["kernel1.edge_spill"] == spills
@@ -127,14 +133,21 @@ def _edge_spills(m2, cand, q, block, sz, k, C, tau2):
     return int((covered & later).sum())
 
 
+def _rows(s):
+    """The CSR rows a block of ``s`` stages: mcz·mcy."""
+    return s["mc"][0] * s["mc"][1]
+
+
+def _threads(block):
+    return tfg._pick_sz(*block) * block[1] * block[2]
+
+
 @pytest.mark.parametrize("mode,k", [("sibson", 10), ("idw", 10),
                                     ("sibson", 1), ("idw", 1)])
 def test_fused_kernel_tau2_bit_equal_on_gpu(cuda_device, mode, k):
     """Blocks with uncovered nodes (the corner slab), k = 10 and k = 1."""
-    block = (2, 4, 8)
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.corner_slab(), block, k,
-                                          cuda_device)
-    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    s = fx.kernel1_setup(fx.corner_slab(), (2, 4, 8), k, cuda_device)
+    counts, n = _check_kernel(s, k, mode)
     assert counts["kernel1.overflow"] < n
 
 
@@ -142,10 +155,9 @@ def test_fused_kernel_tau2_bit_equal_on_gpu(cuda_device, mode, k):
 def test_fused_kernel_overflow_on_duplicates_on_gpu(cuda_device, mode):
     """Nodes beside 64 coincident points count more than the shortlist
     holds: they run over the whole panel with the same result."""
-    block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.duplicated(), block, k,
-                                          cuda_device)
-    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    k = 10
+    s = fx.kernel1_setup(fx.duplicated(), (2, 4, 8), k, cuda_device)
+    counts, n = _check_kernel(s, k, mode)
     assert 0 < counts["kernel1.overflow"] < n
 
 
@@ -168,15 +180,15 @@ def test_fused_kernel_lattice_ties_on_gpu(cuda_device, mode, k, m2, path):
     τ² bit-equal, the values within RTOL/ATOL, no node without a
     shortlist."""
     block = (2, 4, 8)
-    _, cand, q, sz, C = fx.kernel1_panel(fx.lattice(), block, k,
-                                         cuda_device)
-    m2 = np.float32(m2)
-    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    s = fx.kernel1_setup(fx.lattice(), block, k, cuda_device)
+    s = dict(s, m2=np.float32(m2))
+    counts, n = _check_kernel(s, k, mode)
     assert counts["kernel1.overflow"] == 0
     if path == "spill":
         assert n // 2 < counts["kernel1.edge_spill"] < n
     else:
-        S = tfg._kernel1_plan(C, q[0].shape[2], k)[0]
+        m2, cand, q, sz, C = fx.kernel1_phase1(s)
+        S = tfg._kernel1_plan(C, q[0].shape[2], k, _rows(s))[0]
         d2 = fx.kernel1_d2(cand, q, block, sz, C)
         b = fx.kernel1_bucket(d2, m2)
         b_k = fx.kernel1_bucket(torch.kthvalue(d2, k, dim=-1).values, m2)
@@ -191,11 +203,9 @@ def test_fused_kernel_at_the_panel_cap_on_gpu(cuda_device, k, block):
     at k = 300 with 256 threads they do not (S = 0), and every node runs
     over the whole panel."""
     C = 8192
-    m2, cand, q, sz, _ = fx.kernel1_panel(fx.uniform(), block, k,
-                                          cuda_device, C=C)
-    Bt = q[0].shape[2]
-    S = tfg._kernel1_plan(C, Bt, k)[0]
-    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
+    s = fx.kernel1_setup(fx.uniform(), block, k, cuda_device, C=C)
+    S = tfg._kernel1_plan(C, _threads(block), k, _rows(s))[0]
+    counts, n = _check_kernel(s, k, "sibson")
     if k == 300:
         assert S == 0 and counts["kernel1.overflow"] == n
     else:
@@ -211,10 +221,9 @@ def test_fused_kernel_warp_bricks_on_gpu(cuda_device, block):
     threads fill no whole warp (no warp lists). On the uniform cloud every
     warp's list fits: τ² bit-equal, the values within RTOL/ATOL."""
     k = 10
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.uniform(), block, k,
-                                          cuda_device)
-    L = tfg._kernel1_plan(C, q[0].shape[2], k)[1]
-    counts, _ = _check_kernel(m2, cand, q, block, sz, k, C, "sibson")
+    s = fx.kernel1_setup(fx.uniform(), block, k, cuda_device)
+    L = tfg._kernel1_plan(s["C"], _threads(block), k, _rows(s))[1]
+    counts, _ = _check_kernel(s, k, "sibson")
     assert counts["kernel1.list_overflow"] == 0
     assert counts["kernel1.edge_spill"] == 0
     assert (counts["kernel1.list_slots"] > 0) == (L > 0)
@@ -224,26 +233,57 @@ def test_fused_kernel_warp_bricks_on_gpu(cuda_device, block):
 @pytest.mark.parametrize("mode", ["sibson", "idw"])
 def test_fused_kernel_warp_list_overflow_on_gpu(cuda_device, mode):
     """1 600 points in a 0.5-wide knot: the warps beside it list more
-    slots than the 498 their lists hold and pass over the panel, the
-    others run their lists; the same results."""
-    block, k = (2, 4, 8), 10
-    m2, cand, q, sz, C = fx.kernel1_panel(fx.dense_knot(), block, k,
-                                          cuda_device)
-    assert tfg._kernel1_plan(C, q[0].shape[2], k)[1] == 498
-    counts, n = _check_kernel(m2, cand, q, block, sz, k, C, mode)
+    slots than the 860 their lists hold (block (4, 4, 8), 128 threads)
+    and pass over the panel, the others run their lists; the same
+    results."""
+    block, k = (4, 4, 8), 10
+    s = fx.kernel1_setup(fx.dense_knot(), block, k, cuda_device)
+    assert tfg._kernel1_plan(s["C"], _threads(block), k, _rows(s))[1] == 860
+    counts, n = _check_kernel(s, k, mode)
     assert 0 < counts["kernel1.list_overflow"] < n // 32
     assert counts["kernel1.list_slots"] > 0
 
 
-@pytest.mark.parametrize("C,Bt,k,ctas", [(1920, 256, 50, 3),
-                                         (3200, 256, 50, 2)])
-def test_kernel1_plan_ctas_on_gpu(cuda_device, C, Bt, k, ctas):
+@pytest.mark.parametrize("C,rows,ctas", [(1920, 100, 3), (3200, 196, 2)])
+def test_kernel1_plan_ctas_on_gpu(cuda_device, C, rows, ctas):
     """The card holds as many CTAs per SM as the plan counts on: 3 at the
-    headline's panel (C = 1 920), 2 at its repair's (C = 3 200)."""
-    S, L, smem = tfg._kernel1_plan(C, Bt, k)
+    headline's panel (C = 1 920 over 100 rows), 2 at its repair's (C =
+    3 200 over 196), 256 threads and k = 50."""
+    Bt, k = 256, 50
+    S, L, smem = tfg._kernel1_plan(C, Bt, k, rows)
     assert tfg._SMEM_SM // (smem + tfg._SMEM_CTA) == ctas
     got = ctypes.c_int(0)
-    err = tfg._kernel_lib().fused_grid_knn_ctas_per_sm(C, Bt, S, L,
+    err = tfg._kernel_lib().fused_grid_knn_ctas_per_sm(C, Bt, S, L, rows,
                                                        ctypes.byref(got))
     assert err == 0
     assert got.value == ctas
+
+
+@pytest.mark.parametrize("cloud", ["corner_slab", "ragged", "duplicated"])
+@pytest.mark.parametrize("block", [(8, 8, 16), (4, 8, 16), (3, 8, 16),
+                                   (8, 16, 16)])
+@pytest.mark.parametrize("mode", ["idw", "sibson"])
+def test_csr_staging_matches_phase1_on_gpu(cuda_device, cloud, block, mode):
+    """The kernel stages each block's candidates from the cell list: the
+    same slots in the same order as phase 1's panel, so τ² bit-equal to
+    the plain version's and ``kernel1.staged_slots`` the panel's real
+    slots, at the main margin over every block and at the repair's 1.6×
+    margin over a set of block ids (a device tensor). The clouds: rows
+    left empty by a slab of points (``corner_slab``), blocks whose
+    regions leave the cell grid's faces (``ragged``'s padded axes), and
+    64 coincident points whose nodes overflow their shortlists
+    (``duplicated``). Blocks (3, 8, 16) and (8, 16, 16) run sub-tiles one
+    node deep (sz = 1)."""
+    k = 10
+    main = fx.kernel1_setup(getattr(fx, cloud)(), block, k, cuda_device)
+    counts, n = _check_kernel(main, k, mode)
+    assert counts["kernel1.staged_slots"] > 0
+    if cloud == "duplicated":
+        assert 0 < counts["kernel1.overflow"] < n
+    dims = [-(-a // b) for a, b in zip(main["grid_shape"], block)]
+    n_blocks = int(np.prod(dims))
+    ids = torch.tensor(sorted({n_blocks - 1, 0, n_blocks // 2}),
+                       device=cuda_device)
+    repair = fx.kernel1_setup(getattr(fx, cloud)(), block, k, cuda_device,
+                              ids=ids, repair=True)
+    _check_kernel(repair, k, mode)

@@ -121,10 +121,15 @@ def lattice(n=12):
     return pts, vals, ((0, n),) * 3, n
 
 
-def kernel1_panel(cloud, block, k, device="cpu", C=None):
-    """Kernel 1's inputs on ``cloud`` as the grid path forms them:
-    ``(m2, cand, (qx, qy, qz), sz, C)``. ``C`` widens the panel past the
-    largest block's candidate count (the extra slots are sentinels)."""
+def kernel1_setup(cloud, block, k, device="cpu", C=None, ids=None,
+                  repair=False):
+    """Kernel 1's inputs on ``cloud`` as the grid path forms them, as a
+    dict: the cell list (``cells``, ``values_sorted``), the padded
+    ``axes``, ``margin`` and its f32 square ``m2``, ``mc``, ``C``,
+    ``grid_shape``, ``block``, ``ids``. The main pass's, or with
+    ``repair`` the repair's (1.6× the margin, its region and f32 m2) over
+    the blocks ``ids``. ``C`` widens the panel past the largest block's
+    candidate count (the extra slots are sentinels)."""
     from ptv_interpolation_tpu_torch.grid import create_grid
     from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
     from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
@@ -132,16 +137,47 @@ def kernel1_panel(cloud, block, k, device="cpu", C=None):
     grid = create_grid(bounds, n)
     cells, vs, axes, margin, mc, _, _ = tgk._host_setup(
         pts, vals, grid, k, block, 1.45, cell_divisor=3.0, device=device)
-    C_raw = tfg._panel_width(tfg._block_total_capacity(cells, axes, margin,
-                                                       block, grid.shape, mc))
+    m2 = np.float32(margin * margin)
+    if repair:
+        margin, mc, axes = tfg._repair_plan(cells, grid, block, margin)
+        m2 = np.float32(margin) * np.float32(margin)
+    C_raw = tfg._panel_width(tfg._block_total_capacity(
+        cells, axes, margin, block, grid.shape, mc, ids=ids))
     assert C is None or C >= C_raw
-    C = C_raw if C is None else C
-    dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
+    return dict(cells=cells, values_sorted=vs, axes=axes, margin=margin,
+                m2=m2, mc=mc, C=C_raw if C is None else C,
+                grid_shape=grid.shape, block=block, ids=ids)
+
+
+def kernel1_cells(s, k, mode, tau2=None):
+    """:func:`_fused_eval_cells` on the inputs of :func:`kernel1_setup`."""
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+    return tfg._fused_eval_cells(
+        s["cells"], s["values_sorted"], s["axes"], s["margin"], s["m2"],
+        s["block"], s["grid_shape"], s["mc"], s["C"], k, mode, 2.0,
+        ids=s["ids"], tau2=tau2)
+
+
+def kernel1_phase1(s):
+    """Phase 1 on the inputs of :func:`kernel1_setup`: ``(m2, cand, (qx,
+    qy, qz), sz, C)``, the panel and query rows of the plain version."""
+    from ptv_interpolation_tpu_torch.ops import fused_grid_knn as tfg
+    block, C = s["block"], s["C"]
+    dims = tuple((n + b - 1) // b for n, b in zip(s["grid_shape"], block))
     sz = tfg._pick_sz(*block)
-    cand = tfg._compact_gather(cells, vs, axes, margin, block, grid.shape, mc,
-                               C)
-    q = tfg._build_queries(axes, block, dims, sz, device=device)
-    return np.float32(margin * margin), cand, q, sz, C
+    cand = tfg._compact_gather(s["cells"], s["values_sorted"], s["axes"],
+                               s["margin"], block, s["grid_shape"], s["mc"],
+                               C, ids=s["ids"])
+    q = tfg._build_queries(s["axes"], block, dims, sz, ids=s["ids"],
+                           device=s["cells"].device)
+    return s["m2"], cand, q, sz, C
+
+
+def kernel1_panel(cloud, block, k, device="cpu", C=None):
+    """Kernel 1's panel inputs on ``cloud`` as the grid path forms them:
+    ``(m2, cand, (qx, qy, qz), sz, C)`` (:func:`kernel1_phase1` of the main
+    pass)."""
+    return kernel1_phase1(kernel1_setup(cloud, block, k, device, C=C))
 
 
 def kernel1_d2(cand, q, block, sz, C):

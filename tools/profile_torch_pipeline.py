@@ -78,7 +78,8 @@ def main():
     timed(grid_knn, "scatter_knn_apply", "filter: exact scatter re-decide")
     timed(fused_grid_knn, "fused_grid_weighted_interpolate",
           "interpolate: fused grid path")
-    timed(fused_grid_knn, "_fused_eval", "interpolate: grid kernel launch")
+    timed(fused_grid_knn, "_fused_eval_cells",
+          "interpolate: grid kernel launch")
     timed(fused_grid_knn, "repair_empty_nodes", "interpolate: repair")
     timed(grid_knn, "_celllist_repair_eval_csr",
           "interpolate: repair, cell-list stage")

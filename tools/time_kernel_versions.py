@@ -17,10 +17,13 @@ kernel's arguments from one call of the entry point a user makes, and
 times the kernel with CUDA events after a warm-up
 (``chip_smoke._cuda_ms``). The measures:
 
-* ``grid``: kernel 1 (``fused_grid_knn.cu``) on the headline's main-pass
-  panel (``bench.make_problem``: 1M points → 256³, sibson k=50, block
-  (8,8,16)) and on its fused repair's panel (the second launch, at 1.6×
-  the margin), 5 launches each; the headline wall,
+* ``grid``: kernel 1 (``fused_grid_knn.cu``) over the headline's blocks
+  (``bench.make_problem``: 1M points → 256³, sibson k=50, block
+  (8,8,16)) and over its fused repair's (the second launch, at 1.6× the
+  margin), 5 launches each, through its wrapper: ``_fused_eval_cells``,
+  which stages from the cell list, or in older checkouts ``_fused_eval``
+  on phase 1's panel (the panel built before the timing); the headline
+  wall,
   ``sibson_grid_interpolate(..., device="cuda")``, median of 3 warm runs;
 * ``mad``: kernel 2 (``fused_mad.cu``) on the production filter panel
   (``chip_smoke``'s production shape, k=30), 5 launches;
@@ -62,14 +65,14 @@ def _chip_smoke():
 
 
 def _all_calls(module, name, fn):
-    """The positional arguments of every call that ``fn()`` makes to the
-    kernel wrapper ``module.<name>``, in order."""
+    """The arguments ``(args, kwargs)`` of every call that ``fn()`` makes
+    to the kernel wrapper ``module.<name>``, in order."""
     seen = []
     orig = getattr(module, name)
 
-    def grab(*a):
-        seen.append(a)
-        return orig(*a)
+    def grab(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
 
     setattr(module, name, grab)
     try:
@@ -98,22 +101,24 @@ def _sha1(out):
     return hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
 
 
-def _time_kernel(torch, cs, res, key, wrapper, args, reps=5):
-    """Time ``wrapper(*args)``; record its overflow count where it keeps
-    one (the ``kernel<n>.overflow`` counter, or the ``last_overflow``
-    attribute of trees that predate the counters), and return one output
-    for the digest."""
-    res[f"{key}_ms"] = cs._cuda_ms(torch, lambda: wrapper(*args), reps)
+def _time_kernel(torch, cs, res, key, wrapper, args, reps=5, kwargs=None):
+    """Time ``wrapper(*args, **kwargs)``; record its overflow count where
+    it keeps one (the ``kernel<n>.overflow`` counter, or the
+    ``last_overflow`` attribute of trees that predate the counters), and
+    return one output for the digest."""
+    kwargs = kwargs or {}
+    res[f"{key}_ms"] = cs._cuda_ms(torch, lambda: wrapper(*args, **kwargs),
+                                   reps)
     utils = sys.modules.get("ptv_interpolation_tpu_torch.utils")
     if hasattr(utils, "capture"):
         with utils.capture() as rec:
-            out = wrapper(*args)
+            out = wrapper(*args, **kwargs)
         counts = rec.counters()
         res[f"{key}_counters"] = counts
         ovf = next((n for name, n in counts.items()
                     if name.endswith(".overflow")), None)
     else:
-        out = wrapper(*args)
+        out = wrapper(*args, **kwargs)
         ovf = getattr(wrapper, "last_overflow", None)
     res[f"{key}_overflow"] = None if ovf is None else int(ovf)
     return out
@@ -135,6 +140,10 @@ def worker(tree, measures):
     from ptv_interpolation_tpu_torch.ops import pallas_grid_knn as pg
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # kernel 1's wrapper: the cell-list entry, or the panel's in trees
+    # whose kernel read phase 1's panel
+    k1 = ("_fused_eval_cells" if hasattr(fg, "_fused_eval_cells")
+          else "_fused_eval")
     res = {"tree": os.path.abspath(tree),
            "device": torch.cuda.get_device_name(0)}
     res["smi"] = subprocess.run(
@@ -156,13 +165,14 @@ def worker(tree, measures):
                                            tau_mode="bisect", block=cs.BLOCK,
                                            device="cuda")
 
-        calls = _all_calls(fg, "_fused_eval", headline)
-        for key, args in zip(("grid_headline", "grid_repair"), calls):
-            out = _time_kernel(torch, cs, res, key, fg._fused_eval, args)
+        calls = _all_calls(fg, k1, headline)
+        for key, (args, kw) in zip(("grid_headline", "grid_repair"), calls):
+            out = _time_kernel(torch, cs, res, key, getattr(fg, k1), args,
+                               kwargs=kw)
             res[f"{key}_digest"] = [float(out[:, :, :3].double().sum()),
                                     int((out[:, :, 3] == 0).sum())]
             res[f"{key}_sha1"] = _sha1(out)
-            del args, out
+            del args, kw, out
         del calls
         res["headline_wall_s"], res["headline_walls"] = _wall(torch, headline)
     if "pallas" in measures:
@@ -197,13 +207,13 @@ def worker(tree, measures):
             return pipeline.run_pipeline(config, cloud=PointCloud(ppts, pvals),
                                          mask_raw=fluid, device="cuda")
 
-        args = cs._captured(fg, "_fused_eval", run)
-        out = _time_kernel(torch, cs, res, "grid_pipeline", fg._fused_eval,
-                           args)
+        args, kw = _all_calls(fg, k1, run)[0]
+        out = _time_kernel(torch, cs, res, "grid_pipeline", getattr(fg, k1),
+                           args, kwargs=kw)
         res["grid_pipeline_digest"] = [float(out[:, :, :3].double().sum()),
                                        int((out[:, :, 3] == 0).sum())]
         res["grid_pipeline_sha1"] = _sha1(out)
-        del out, args
+        del out, args, kw
         res["pipeline_wall_s"], res["pipeline_walls"] = _wall(torch, run)
     print(json.dumps(res), flush=True)
 
