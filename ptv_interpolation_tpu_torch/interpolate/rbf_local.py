@@ -36,6 +36,7 @@ from ptv_interpolation_tpu_torch.ops.rbf_kernels import (MIN_DEGREE,
                                                          kernel_value,
                                                          n_poly_terms,
                                                          polynomial_basis)
+from ptv_interpolation_tpu_torch.utils import count, span, tracing
 
 _SOLVE_CHUNK = 131072   # systems per batch-minor chunk of _rbf_solve_flat
 _MAX_F32_ID = 1 << 24   # ids ride in an f32 channel: exact below 2²⁴
@@ -152,7 +153,9 @@ def _rbf_solve_flat(points: torch.Tensor, values: torch.Tensor,
     (``sq`` (Q, k) f32, ``idx`` (Q, k) int, -1 = missing), fit and
     evaluate the local models in chunks of ``chunk`` queries laid out
     batch-minor ((k, T), (k, k, T), (m, k, T)), solved by
-    :func:`_gauss_solve_t`. Returns (Q, C)."""
+    :func:`_gauss_solve_t`. Returns (Q, C). While tracing, counts
+    ``rbf.systems`` (the systems solved) and ``rbf.nonfinite`` (those
+    whose solution has a non-finite entry)."""
     m = n_poly_terms(degree)
     Q = queries.shape[0]
     dev = queries.device
@@ -196,6 +199,10 @@ def _rbf_solve_flat(points: torch.Tensor, values: torch.Tensor,
         rhs = torch.cat([fT, fT.new_zeros((m, n_ch, T))], dim=0)
         sol = _gauss_solve_t(A, rhs)                  # (k+m, C, T)
         del A, rhs
+        if tracing():
+            count("rbf.systems", T)
+            count("rbf.nonfinite",
+                  (~torch.isfinite(sol).all(dim=1).all(dim=0)).sum())
 
         rqT = torch.sqrt(torch.clamp_min(sqT, 0.0)) / scale[None, :]
         KqT = torch.where(validT, kernel_value(kernel, epsilon * rqT), 0.0)
@@ -236,13 +243,18 @@ def rbf_local_grid_interpolate(points, values, grid, k: int = 20,
                                              device=dev)[:, None]], dim=1)
     kwargs.setdefault("block", (4, 8, 16))
     kwargs.setdefault("exact_topk", True)
-    out = grid_knn_apply(pts, vals_aug, grid, k, _index_consume(int(k), n_ch),
-                         out_dim=2 * k, needs_positions=False, device=dev,
-                         **kwargs)
+    with span("ptv.grid.rbf.select", k=int(k), block=tuple(kwargs["block"]),
+              nodes=grid.n_points):
+        out = grid_knn_apply(pts, vals_aug, grid, k,
+                             _index_consume(int(k), n_ch), out_dim=2 * k,
+                             needs_positions=False, device=dev, **kwargs)
     flat = out.reshape(-1, 2 * k)
-    res = _rbf_solve_flat(pts, vals, grid.flat_coords(dev), flat[:, :k],
-                          flat[:, k:].to(torch.int64), int(k), kernel,
-                          float(smoothing), float(epsilon), int(degree), n_ch)
+    with span("ptv.grid.rbf.solve", m=n_poly_terms(int(degree)),
+              chunks=-(-flat.shape[0] // _SOLVE_CHUNK)):
+        res = _rbf_solve_flat(pts, vals, grid.flat_coords(dev), flat[:, :k],
+                              flat[:, k:].to(torch.int64), int(k), kernel,
+                              float(smoothing), float(epsilon), int(degree),
+                              n_ch)
     return res.reshape(grid.shape + (n_ch,))
 
 

@@ -44,7 +44,7 @@ from ptv_interpolation_tpu_torch.grid import Grid
 from ptv_interpolation_tpu_torch.ops.neighbors import (CellList,
                                                        build_cell_list,
                                                        cell_meta_np)
-from ptv_interpolation_tpu_torch.utils import count, span, wait
+from ptv_interpolation_tpu_torch.utils import count, span, tracing, wait
 
 _ROW_PAD = 1024   # sentinel rows after the sorted arrays bound a row's length
 _BIG = 3.4e38     # sentinel squared distance of an empty candidate slot
@@ -751,7 +751,11 @@ def _grid_block_eval(cells: CellList, values_sorted: torch.Tensor, axes,
     to ``consume_fn(sq, n_pos, n_val, n_ok, q)`` on (rows, kk[, ·])
     batches (``n_pos`` None unless ``needs_positions``); returns
     (nz, ny, nx, out_dim). Ties come in slot order, as ``lax.top_k``
-    orders them."""
+    orders them.
+
+    While tracing, counts ``knn.uncovered``: the grid nodes whose last
+    selected d² exceeds margin², whose k-set the region does not
+    certify (a nearer point may lie outside it)."""
     nz, ny, nx = grid_shape
     bz, by, bx = block
     nb = (_block_counts(nz, bz), _block_counts(ny, by),
@@ -765,6 +769,8 @@ def _grid_block_eval(cells: CellList, values_sorted: torch.Tensor, axes,
     ids = torch.arange(nb[0] * nb[1] * nb[2], device=dev)
     out = torch.empty((ids.shape[0] * B, out_dim), dtype=torch.float32,
                       device=dev)
+    far = (torch.empty(ids.shape[0] * B, dtype=torch.bool, device=dev)
+           if tracing() else None)
     starts, step = _block_chunks(ids.shape[0], B, C)
     for s in starts:
         q, cand, vals, valid, d2 = _block_panels(
@@ -772,6 +778,8 @@ def _grid_block_eval(cells: CellList, values_sorted: torch.Tensor, axes,
             mc, row_len)
         g = d2.shape[0]
         sq, args = _topk_slot_order(d2.reshape(g * B, C), kk)
+        if far is not None:
+            far[s * B:(s + g) * B] = sq[:, -1] > m32 * m32
         args = args.reshape(g, B * kk)
         n_val = torch.gather(vals, 1, args[..., None].expand(
             g, B * kk, vals.shape[-1])).reshape(g * B, kk, -1)
@@ -780,6 +788,9 @@ def _grid_block_eval(cells: CellList, values_sorted: torch.Tensor, axes,
                  .reshape(g * B, kk, 3) if needs_positions else None)
         out[s * B:(s + g) * B] = consume_fn(sq, n_pos, n_val, n_ok,
                                             q.reshape(g * B, 3))
+    if far is not None:          # padded nodes beyond the grid left out
+        count("knn.uncovered", _reassemble_blocks(
+            far.reshape(-1, B, 1), block, grid_shape).sum())
     return _reassemble_blocks(out.reshape(-1, B, out_dim), block, grid_shape)
 
 

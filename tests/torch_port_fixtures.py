@@ -281,3 +281,68 @@ def carry_cells(jax_cells, device="cpu"):
         np.asarray(jax_cells.points_sorted), np.asarray(jax_cells.origin),
         np.asarray(jax_cells.inv_cell), jax_cells.dims, jax_cells.cap,
         jax_cells.n_points, inv_host=jax_cells.inv_host, device=device)
+
+
+def cell_density_cube(n=40, seed=4):
+    """Tracks uniform in [0, n)³ at the density of the benchmark's
+    headline cells (1M tracks per 256³), carrying their field; the bounds
+    put n nodes a side over [0, n]."""
+    rng = np.random.default_rng(seed)
+    n_pts = int(round(1e6 / 256 ** 3 * n ** 3))
+    pts = rng.uniform(0, n, (n_pts, 3)).astype(np.float32)
+    vals = np.stack([np.sin(pts[:, 0] * 0.05), np.cos(pts[:, 1] * 0.04),
+                     1.0 + 0.1 * np.sin(pts[:, 2] * 0.03)],
+                    -1).astype(np.float32)
+    return pts, vals, ((0, n + 1),) * 3, n
+
+
+def grid_nodes(grid):
+    """(Q, 3) x, y, z of every node of ``grid``, in its (z, y, x) order."""
+    Z, Y, X = np.meshgrid(grid.z, grid.y, grid.x, indexing="ij")
+    return np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1)
+
+
+def face_rows(shape):
+    """Flat bool mask of the nodes on any face of a (nz, ny, nx) grid."""
+    import torch
+    face = torch.zeros(shape, dtype=torch.bool)
+    for dim in range(3):
+        face.narrow(dim, 0, 1).fill_(True)
+        face.narrow(dim, shape[dim] - 1, 1).fill_(True)
+    return face.reshape(-1)
+
+
+def rbf_grid_route(pts, vals, grid, k, device, block=(4, 8, 16),
+                   margin_factor=1.45):
+    """One call of ``interpolate_field(method="rbf")`` on the grid route
+    under ``capture()``: the field (Q, 3) in f64 on the CPU, the selection
+    it made (``grid_knn_apply``'s output, (Q, 2k): d² then point ids), the
+    spans, the counters, and the margin of the blocks' regions
+    (``block`` and ``margin_factor`` are the route's defaults)."""
+    import pytest
+    import torch
+
+    from ptv_interpolation_tpu_torch.interpolate import interpolate_field
+    from ptv_interpolation_tpu_torch.ops import grid_knn as tgk
+    from ptv_interpolation_tpu_torch.utils import capture
+    seen = []
+    original = tgk.grid_knn_apply
+
+    def recording(*args, **kwargs):
+        out = original(*args, **kwargs)
+        seen.append(out.reshape(-1, out.shape[-1]).cpu())
+        return out
+
+    with pytest.MonkeyPatch.context() as mp, capture() as rec:
+        mp.setattr(tgk, "grid_knn_apply", recording)
+        u, v, w = interpolate_field(pts, vals, grid, method="rbf",
+                                    rbf_neighbors=k,
+                                    use_grid_kernel="always", device=device)
+        spans, counters = rec.spans(), rec.counters()
+    (selection,) = seen
+    margin = tgk._host_setup(torch.from_numpy(pts), torch.from_numpy(vals),
+                             grid, k, block, margin_factor,
+                             device="cpu")[3]
+    field = torch.stack([u.reshape(-1), v.reshape(-1), w.reshape(-1)], 1)
+    return {"field": field.double().cpu(), "selection": selection,
+            "spans": spans, "counters": counters, "margin": margin}
